@@ -4,8 +4,8 @@
 
 Phases, each of which makes the script exit non-zero when it fails:
 
-  (a) build every CUDA kernel of the serving path from ``src/repro_torch/
-      csrc`` (one ``nvcc`` per source, all started together);
+  (a) build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
+      per source, all started together);
   (b) hold each kernel against its plain PyTorch version on the card at the
       serving path's shapes (and transpose, #_d = 13 and row-offset
       variants): max |diff| against the stated tolerance, equal saturation
@@ -16,8 +16,25 @@ Phases, each of which makes the script exit non-zero when it fails:
   (d) the same under the paper's iterative bound management;
   (r) the smoke-size model on the card (kernels) against the CPU (plain
       versions): equal greedy tokens, logits within 1e-4;
+  (f) hold each training kernel (conv read, pulse counts, fused dense and
+      conv backward+update), and the raw and managed reads at the shapes
+      the SEPARATE and ITERATIVE steps give them, against its plain version
+      on the card at LeNet's shapes (K1, K2 with #_d 1 and 13, W3, W4; NM
+      and two-phase BM on and off; a row offset; rows saturating on one
+      read and on both): counts bitwise, reads within 1e-5 of the largest
+      sum |x||w| with equal saturation flags;
+  (g) train the full-width LeNet through ``repro_torch.train.cnn`` under
+      the FUSED, SEPARATE and PAPER policies (20 steps each) and ITERATIVE
+      (5 steps): launches per kind per step, no plain-version call on the
+      card, steps/s, images/s, and one step's wall time, device time and
+      idle share;
+  (h) train 2 epochs of 1024 synthetic images under nm_bm with two-phase
+      BM and the fused update: final test error below 0.4;
+  (r2) one FUSED training step on the card against the plain CPU step on
+      the same parameters, images and key: logits, x_bar, new weights;
   (e) each kernel's time against its bound, its plain version and one
-      ``torch.matmul`` call on the same shapes (yardstick only).
+      PyTorch call on the same shapes (yardstick only): ``torch.matmul``
+      for the reads and the count products, ``F.conv2d`` for the conv read.
 
 The line before the card line is the kernels' JSON summary; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
@@ -39,6 +56,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12         # H100 SXM int8 tensor cores, dense
 SIGMA, ALPHA = 0.06, 12.0        # lm_managed read noise / integrator bound
 POLICY_2P = "lm_managed:use_pallas=true:bm_mode=two_phase"
 POLICY_IT = "lm_managed:use_pallas=true"
@@ -52,15 +70,54 @@ TIME_SHAPES = [("q/k/v/o 4096x4096", 4096, 4096, 1),
                ("unembed 102400x4096", 102400, 4096, 1)]
 SMOKE = False                    # full published size
 
+# LeNet training (slice 2): policies and their launches per step
+FUSED = "managed:use_pallas=true:bm_mode=two_phase:fuse_bwd_update=true"
+SEPARATE = "managed:use_pallas=true:bm_mode=two_phase"
+PAPER = ("K2=k2_multi_device:use_pallas=true:bm_mode=two_phase"
+         ":fuse_bwd_update=true,*=" + FUSED)
+ITERATIVE = "nm_bm:use_pallas=true"
+LEARN = "nm_bm:use_pallas=true:bm_mode=two_phase:fuse_bwd_update=true"
+LENET_BATCH, LENET_STEPS, ITERATIVE_STEPS = 8, 20, 5
+PER_STEP = {
+    "fused": {"managed_read": 2, "managed_read_conv": 2, "bwd_update": 2,
+              "bwd_update_conv": 2},
+    "separate": {"managed_read": 6, "managed_read_conv": 2,
+                 "pulse_counts": 4},
+    "paper": {"managed_read": 2, "managed_read_conv": 2, "bwd_update": 2,
+              "bwd_update_conv": 2},
+}
+
+# name -> its source, the TPU kernel it replaces, its launch kind, the run
+# whose launches the summary reports and the timed shape it reports
 KERNELS = {
     "noisy_mvm": dict(route="cuda",
                       source="src/repro_torch/csrc/noisy_mvm.cu",
                       replaces="src/repro/kernels/noisy_mvm.py:127",
-                      kind="noisy_read"),
+                      kind="noisy_read", run="serve_iterative",
+                      shape="wg/wi 11008x4096"),
     "managed_mvm": dict(route="cuda",
                         source="src/repro_torch/csrc/managed_mvm.cu",
                         replaces="src/repro/kernels/managed_mvm.py:187",
-                        kind="managed_read"),
+                        kind="managed_read", run="serve_two_phase",
+                        shape="wg/wi 11008x4096"),
+    "conv_mvm": dict(route="cuda", source="src/repro_torch/csrc/conv_mvm.cu",
+                     replaces="src/repro/kernels/conv_mvm.py:157",
+                     kind="managed_read_conv", run="train_fused",
+                     shape="K1"),
+    "pulse_counts": dict(route="cuda",
+                         source="src/repro_torch/csrc/pulse_counts.cu",
+                         replaces="src/repro/kernels/pulse_update.py:112",
+                         kind="pulse_counts", run="train_separate",
+                         shape="K1 BL=1"),
+    "bwd_update_mvm": dict(route="cuda",
+                           source="src/repro_torch/csrc/bwd_update_mvm.cu",
+                           replaces="src/repro/kernels/bwd_update_mvm.py:222",
+                           kind="bwd_update", run="train_fused", shape="W3"),
+    "conv_bwd_update": dict(route="cuda",
+                            source="src/repro_torch/csrc/bwd_update_mvm.cu",
+                            replaces="src/repro/kernels/bwd_update_mvm.py:473",
+                            kind="bwd_update_conv", run="train_fused",
+                            shape="K1"),
 }
 
 
@@ -251,28 +308,35 @@ def _tensors(tree):
 
 
 def _profile_decode(params, cfg, akey, prompts):
-    """One decode step: its wall time (host clock around a synchronised
-    step, no profiler), and the device time of each CUDA kernel in a second,
-    profiled step (None when the profiler records no device time)."""
+    """One decode step: its wall time and device time (``_profile_step``)."""
     import torch
     from repro_torch.serve import engine
     with torch.no_grad():
         _, cache = engine.prefill(params, prompts, cfg, max_seq=PROMPT + GEN,
                                   akey=akey)
         tok = prompts[:, -1:]
-        step = lambda: engine.serve_step(params, tok, cache, cfg,
-                                         akey=engine.decode_step_key(akey, 0))
+        return _profile_step(
+            lambda: engine.serve_step(params, tok, cache, cfg,
+                                      akey=engine.decode_step_key(akey, 0)),
+            "one decode step")
+
+
+def _profile_step(step, what):
+    """``what``: its wall time (host clock around a synchronised call, no
+    profiler), and the device time of each CUDA kernel in a second,
+    profiled call (None when the profiler records no device time)."""
+    import torch
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
         step()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            step()
-            torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
         # device-side events only: a host op (aten::mul) also carries the
@@ -288,7 +352,7 @@ def _profile_decode(params, cfg, akey, prompts):
         return dict(wall_ms=wall, device_busy_ms=None, top=[])
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
-    print(f"[profile] one decode step: wall {wall:.1f} ms, device busy "
+    print(f"[profile] {what}: wall {wall:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.2f}")
     for key, n, ms in rows[:8]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {key[:70]}")
@@ -431,22 +495,550 @@ def kernel_times(results):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# (f) training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (name, volume (B, H, W, C), kernel, out channels) at LeNet's widths
+CONV_LAYERS = [("K1", (LENET_BATCH, 28, 28, 1), 5, 16),
+               ("K2", (LENET_BATCH, 12, 12, 16), 5, 32)]
+DENSE_LAYERS = [("W3", 512, 128), ("W4", 128, 10)]
+
+
+def _scaled_rows(g, rows, cols, scales=(1.0, 8.0, 300.0)):
+    """Gaussian rows at scales 1, 8 and 300 in turn: some rows never
+    saturate, some on the first read only, some on both two-phase reads."""
+    import torch
+    v = torch.randn(rows, cols, generator=g, device=DEV)
+    s = torch.tensor(scales, device=DEV)
+    return (v * s[torch.arange(rows, device=DEV) % len(scales)][:, None]
+            ).contiguous()
+
+
+def _conv_case(name, vol, k, out, d, seed):
+    """Weights ~ N(0, 1/K) and a volume whose images are scaled 1, 8, 300."""
+    import torch
+    from repro_torch.core import conv_mapping as cm
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    geom = cm.conv_geometry(vol, k)
+    w = (torch.randn(out * d, geom.cols, generator=g, device=DEV)
+         * geom.cols ** -0.5).contiguous()
+    x = _scaled_rows(g, vol[0], vol[1] * vol[2] * vol[3]).reshape(vol)
+    return geom, w, x.contiguous()
+
+
+def _read_check(results, kernel, case, y, yp, s, sp, mag, extra=""):
+    import torch
+    torch.cuda.synchronize()
+    err = float((y - yp).abs().max())
+    tol = 1e-5 * max(1.0, mag)
+    agree = int((s == sp).sum())
+    good = (err <= tol and agree == s.numel() and y.shape == yp.shape
+            and bool(torch.isfinite(y).all()))
+    print(f"[check] {kernel:<15} {case:<34} max|diff|={err:.3e} "
+          f"tol={tol:.3e} sat agree {agree}/{s.numel()} "
+          f"(set: {int(sp.sum())}){extra} {'ok' if good else 'FAIL'}")
+    results.setdefault("checks", []).append(dict(
+        kernel=kernel, case=case, max_abs_err=err, tol=tol, sat_agree=agree,
+        rows=s.numel(), sat_set=int(sp.sum()), ok=good))
+    return good
+
+
+def _count_check(results, kernel, case, up, dn, upp, dnp):
+    import torch
+    torch.cuda.synchronize()
+    good = torch.equal(up, upp) and torch.equal(dn, dnp)
+    err = float(torch.maximum((up - upp).abs().max(),
+                              (dn - dnp).abs().max()))
+    print(f"[check] {kernel:<15} {case:<34} counts up {int(upp.sum())} dn "
+          f"{int(dnp.sum())} bitwise {'ok' if good else 'FAIL'}")
+    results.setdefault("checks", []).append(dict(
+        kernel=kernel, case=case, max_abs_err=err, tol=0.0, ok=good))
+    return good
+
+
+def _lenet_reads(seed):
+    """(case, w, x, transpose) of the dense reads that the SEPARATE and
+    ITERATIVE steps give kernels #1 and #2: K1 and K2 forward over the
+    gathered position columns and transposed over the position errors, W3
+    and W4 both ways at batch 8.  Rows are scaled 1, 8 and 300 in turn (the
+    conv columns per image), so some saturate on one read and some on
+    both."""
+    import torch
+    from repro_torch.core import conv_mapping as cm
+    out = []
+    for name, vol, k, n_out in CONV_LAYERS:
+        geom, w, x = _conv_case(name, vol, k, n_out, 1, seed)
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        seed += 1
+        out += [(f"{name} fwd B={geom.positions}", w,
+                 cm.gather_columns(x, geom).contiguous(), False),
+                (f"{name} transpose B={geom.positions}", w,
+                 _scaled_rows(g, geom.positions, n_out), True)]
+    for name, n_in, n_out in DENSE_LAYERS:
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        seed += 1
+        w = (torch.randn(n_out, n_in + 1, generator=g, device=DEV)
+             * (n_in + 1) ** -0.5).contiguous()
+        out += [(f"{name} fwd B={LENET_BATCH}", w,
+                 _scaled_rows(g, LENET_BATCH, n_in + 1), False),
+                (f"{name} transpose B={LENET_BATCH}", w,
+                 _scaled_rows(g, LENET_BATCH, n_out), True)]
+    return out
+
+
+def training_kernels_vs_plain(results):
+    import torch
+    from repro_torch.core import conv_mapping as cm
+    from repro_torch.core import update
+    from repro_torch.kernels import bwd_update_mvm as kb
+    from repro_torch.kernels import conv_mvm as kc
+    from repro_torch.kernels import managed_mvm as km
+    from repro_torch.kernels import noisy_mvm as kn
+    from repro_torch.kernels import pulse_update as kp
+
+    ok = True
+    seed = 300
+    # #1 raw and #2 managed reads at LeNet's shapes (ITERATIVE, SEPARATE)
+    for case, w, x, tr in _lenet_reads(seed):
+        seed += 1
+        mag = float((x.abs() @ (w.abs() if tr else w.abs().T)).max())
+        kw = dict(sigma=SIGMA, alpha=ALPHA, transpose=tr)
+        y, s = kn.noisy_mvm(w, x, 0x5EED + seed, **kw)
+        yp, sp = kn.noisy_mvm_plain(w, x, 0x5EED + seed, **kw)
+        ok &= _read_check(results, "noisy_mvm", case, y, yp, s, sp, mag)
+        for nm in (False, True):
+            nm_s = (x.abs().amax(1, keepdim=True) if nm
+                    else torch.ones(x.shape[0], 1, device=DEV))
+            mkw = dict(kw, two_phase=True, retry_scale=16.0)
+            y, s = km.managed_mvm(w, x, nm_s, (seed, 77), **mkw)
+            yp, sp = km.managed_mvm_plain(w, x, nm_s, (seed, 77), **mkw)
+            first = int(km.managed_mvm_plain(
+                w, x, nm_s, (seed, 77), **dict(mkw, two_phase=False))[1].sum())
+            ok &= _read_check(results, "managed_mvm", f"{case} nm={int(nm)}",
+                              y, yp, s, sp, mag, f" first-read sat {first}")
+    # #3 conv read and #7 conv backward+update
+    for name, vol, k, out in CONV_LAYERS:
+        for d in ((1, 13) if name == "K2" else (1,)):
+            geom, w, x = _conv_case(name, vol, k, out, d, seed)
+            seed += 1
+            cols = cm.gather_columns(x, geom)
+            mag = float((cols.abs() @ w.abs().T).max())
+            for nm, tp in ((False, True), (True, True), (False, False),
+                           (True, False)):
+                case = f"{name} #_d={d} nm={int(nm)} 2p={int(tp)}"
+                nm_s = (cm._conv_nm_scale(x, geom) if nm
+                        else torch.ones(geom.positions, 1, device=DEV))
+                kw = dict(sigma=SIGMA, alpha=ALPHA, two_phase=tp, d_avg=d)
+                y, s = kc.conv_managed_mvm(w, x, geom, nm_s, (21, 22), **kw)
+                yp, sp = kc.conv_managed_mvm_plain(w, x, geom, nm_s,
+                                                   (21, 22), **kw)
+                first = int(kc.conv_managed_mvm_plain(
+                    w, x, geom, nm_s, (21, 22), **dict(
+                        kw, two_phase=False))[1].sum())
+                ok &= _read_check(results, "conv_mvm", case, y, yp, s, sp,
+                                  mag, f" first-read sat {first}")
+            g = torch.Generator(device=DEV).manual_seed(seed)
+            dr = _scaled_rows(g, geom.positions, out).repeat(1, d)
+            dmag = float((dr.abs() @ w.abs()).max())
+            for nm, tp, bl in ((True, True, 1), (False, True, 1),
+                               (False, False, 10), (True, False, 10)):
+                case = f"{name} #_d={d} nm={int(nm)} 2p={int(tp)} BL={bl}"
+                nm_s = (dr.abs().amax(1, keepdim=True) if nm
+                        else torch.ones(geom.positions, 1, device=DEV))
+                gains = torch.tensor([0.9, 1.3], device=DEV)
+                kw = dict(sigma=SIGMA, alpha=ALPHA, two_phase=tp, bl=bl)
+                z, s, up, dn = kb.conv_bwd_update(
+                    w, x, dr, geom, nm_s, (31, 32), (41, 42), gains, **kw)
+                zp, sp, upp, dnp = kb.conv_bwd_update_plain(
+                    w, x, dr, geom, nm_s, (31, 32), (41, 42), gains, **kw)
+                ok &= _read_check(results, "conv_bwd_update", case, z, zp, s,
+                                  sp, dmag)
+                ok &= _count_check(results, "conv_bwd_update", case, up, dn,
+                                   upp, dnp)
+    # #6 dense backward+update
+    for name, n_in, out in DENSE_LAYERS:
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        seed += 1
+        w = (torch.randn(out, n_in + 1, generator=g, device=DEV)
+             * out ** -0.5).contiguous()
+        x = _scaled_rows(g, LENET_BATCH, n_in + 1, (1.0,))
+        dd = _scaled_rows(g, LENET_BATCH, out)
+        dmag = float((dd.abs() @ w.abs()).max())
+        for nm, tp, bl, row0 in ((True, True, 1, 0), (False, False, 10, 0),
+                                 (False, True, 10, 2 ** 32 - 5),
+                                 (True, False, 1, 1000)):
+            case = f"{name} nm={int(nm)} 2p={int(tp)} BL={bl} row0={row0}"
+            nm_s = (dd.abs().amax(1, keepdim=True) if nm
+                    else torch.ones(LENET_BATCH, 1, device=DEV))
+            gains = torch.tensor([1.1, 0.7], device=DEV)
+            kw = dict(sigma=SIGMA, alpha=ALPHA, two_phase=tp, bl=bl)
+            z, s, up, dn = kb.bwd_update_mvm(w, dd, x, nm_s, (51, 52),
+                                             (61, 62, row0), gains, **kw)
+            zp, sp, upp, dnp = kb.bwd_update_mvm_plain(
+                w, dd, x, nm_s, (51, 52), (61, 62, row0), gains, **kw)
+            ok &= _read_check(results, "bwd_update_mvm", case, z, zp, s, sp,
+                              dmag)
+            ok &= _count_check(results, "bwd_update_mvm", case, up, dn, upp,
+                               dnp)
+    # #4 pulse counts of digitally sampled streams
+    for case, t, m, n in _count_shapes():
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        seed += 1
+        rows, cols = _streams(g, t, m, n)
+        up, dn = kp.pulse_counts(rows, cols)
+        upp, dnp = kp.pulse_counts_plain(rows, cols)
+        ok &= _count_check(results, "pulse_counts", case, up, dn, upp, dnp)
+    check(ok, "a training kernel disagrees with its plain version")
+
+
+def _count_shapes():
+    """(case, T, M, N) of the update cycle's count contractions at LeNet's
+    widths and batch 8: BL = 1 (managed) and 10 (nm_bm)."""
+    out = []
+    for bl in (1, 10):
+        out += [(f"K1 BL={bl}", 4608 * bl, 16, 26),
+                (f"K2 BL={bl}", 512 * bl, 32, 401),
+                (f"W3 BL={bl}", 8 * bl, 128, 513),
+                (f"W4 BL={bl}", 8 * bl, 10, 129)]
+    out.append(("K2 #_d=13 BL=1", 512, 416, 401))
+    return out
+
+
+def _streams(g, t, m, n):
+    """Signed streams of drivers N(0, 1) at gain 0.8, sampled as the update
+    cycle samples them (``update.signed_streams``)."""
+    import torch
+    from repro_torch.core import update
+    gain = torch.tensor(0.8, device=DEV)
+    rows = update.signed_streams(7, torch.randn(t, m, generator=g,
+                                                device=DEV), gain, 1)
+    cols = update.signed_streams(8, torch.randn(t, n, generator=g,
+                                                device=DEV), gain, 1)
+    return rows.reshape(t, m).contiguous(), cols.reshape(t, n).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# (g) LeNet training on the card
+# ---------------------------------------------------------------------------
+
+class _PlainCalls:
+    """Counts calls of the kernels' plain versions while active (on the
+    card every wrapper must launch its kernel instead)."""
+
+    def __init__(self):
+        from repro_torch.kernels import (bwd_update_mvm, conv_mvm,
+                                         managed_mvm, noisy_mvm,
+                                         pulse_update)
+        self.mods = (noisy_mvm, managed_mvm, conv_mvm, pulse_update,
+                     bwd_update_mvm)
+        self.calls = 0
+        self.saved = []
+
+    def __enter__(self):
+        for mod in self.mods:
+            for name in dir(mod):
+                fn = getattr(mod, name)
+                if name.endswith("_plain") and callable(fn):
+                    self.saved.append((mod, name, fn))
+                    setattr(mod, name, self._counted(fn))
+        return self
+
+    def _counted(self, fn):
+        def wrapper(*a, **kw):
+            self.calls += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _lenet_images(n, seed):
+    import torch
+    from repro_torch.data import synthetic_mnist
+    x, y = synthetic_mnist.make_dataset(n, seed=seed)
+    return torch.from_numpy(x).to(DEV), torch.from_numpy(y).to(DEV)
+
+
+def lenet_train(label, policy, steps, results):
+    """``steps`` training steps of the full-width LeNet under ``policy``;
+    returns the launches per kind per step."""
+    import torch
+    from repro_torch.analog import presets
+    from repro_torch.kernels import ops
+    from repro_torch.models import lenet
+    from repro_torch.train import cnn
+    from repro_torch.utils import prng
+
+    cfg = lenet.LeNetConfig.from_policy(presets.parse_policy(policy))
+    params = lenet.init(prng.key(0), cfg, device=DEV)
+    shapes = {n: tuple(params[n].w.shape) for n in lenet.LAYERS}
+    xs, ys = _lenet_images((steps + 1) * LENET_BATCH, seed=1)
+    step = cnn.make_train_step(cfg)
+    k_train = prng.key(2)
+    b = LENET_BATCH
+    batch = lambda s: (xs[s * b:(s + 1) * b], ys[s * b:(s + 1) * b])
+    step(params, *batch(steps), prng.fold_in(k_train, 10 ** 6))  # warm-up
+    torch.cuda.synchronize()
+    with _PlainCalls() as plain:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for s in range(steps):
+            loss = step(params, *batch(s), prng.fold_in(k_train, s))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    print(f"[{label}] {policy}: tiles {shapes}")
+    print(f"[{label}] {steps} steps in {dt:.3f}s: {steps / dt:.1f} steps/s, "
+          f"{steps * b / dt:.1f} images/s, launches per step {per_step}, "
+          f"plain-version calls {plain.calls}, last loss {float(loss):.4f}")
+    check(plain.calls == 0, f"{plain.calls} plain-version calls on the card")
+    check(bool(torch.isfinite(loss)), "non-finite loss")
+    for n in lenet.LAYERS:
+        w = params[n].w
+        check(bool(torch.isfinite(w).all()) and
+              bool((w.abs() <= params[n].maps.bound).all()),
+              f"{n}: weights not finite or outside the device bounds")
+    prof = _profile_step(
+        lambda: step(params, *batch(steps), prng.fold_in(k_train, 10 ** 6)),
+        f"one {label} step")
+    results[label] = dict(policy=policy, steps=steps, seconds=dt,
+                          steps_per_s=steps / dt,
+                          images_per_s=steps * b / dt, launches=counts,
+                          per_step=per_step, plain_calls=plain.calls,
+                          tiles=shapes, step_profile=prof)
+    return counts
+
+
+def lenet_training(results):
+    for name, policy in (("fused", FUSED), ("separate", SEPARATE),
+                         ("paper", PAPER)):
+        counts = lenet_train(f"train_{name}", policy, LENET_STEPS, results)
+        want = {k: v * LENET_STEPS for k, v in PER_STEP[name].items()}
+        got = {k: v for k, v in counts.items() if v}
+        check(got == want, f"{name}: launches {got}, expected {want}")
+    counts = lenet_train("train_iterative", ITERATIVE, ITERATIVE_STEPS,
+                         results)
+    n = ITERATIVE_STEPS
+    check(counts["pulse_counts"] == 4 * n and counts["noisy_read"] >= 8 * n
+          and counts["managed_read"] == counts["managed_read_conv"] == 0
+          and counts["bwd_update"] == counts["bwd_update_conv"] == 0,
+          f"iterative: launches {counts}, expected 4 pulse_counts and at "
+          "least 8 noisy reads per step, nothing else")
+
+
+# ---------------------------------------------------------------------------
+# (h) learning
+# ---------------------------------------------------------------------------
+
+def lenet_learning(results):
+    from repro_torch.analog import presets
+    from repro_torch.models import lenet
+    from repro_torch.train import cnn
+    cfg = lenet.LeNetConfig.from_policy(presets.parse_policy(LEARN))
+    r = cnn.train(cfg, epochs=2, batch=LENET_BATCH, n_train=1024,
+                  n_test=256, seed=0, device=DEV)
+    print(f"[learn] {LEARN}: test error per epoch {r['test_error']}, "
+          f"{r['steps_per_sec']:.1f} steps/s (training and evaluation)")
+    results["learn"] = dict(policy=LEARN, test_error=r["test_error"],
+                            steps_per_s=r["steps_per_sec"],
+                            seconds=r["wallclock_s"])
+    check(r["final_error"] < 0.4,
+          f"final test error {r['final_error']} is not below 0.4")
+
+
+# ---------------------------------------------------------------------------
+# (r2) one training step: the card against the plain CPU step
+# ---------------------------------------------------------------------------
+
+# logits: f32 reassociation through four managed reads (the card's blocked
+# FMA sums vs the CPU's matmul); x_bar: the same through the backward reads
+# and col2im; weights: an activation an ulp off can flip a Bernoulli draw
+# at u ~ p, so at most 0.1% of a tile's entries may differ by more than
+# 1e-6, each by at most a few coincidences' dw (3e-3)
+STEP_LOGIT_ATOL = 1e-5
+STEP_XBAR_RTOL = 1e-4
+STEP_W_ATOL, STEP_W_SHARE, STEP_W_MAX = 1e-6, 1e-3, 3e-3
+
+
+def _one_step(params, x, y, key, cfg):
+    import torch
+    from repro_torch.models import lenet
+    from repro_torch.optim import optimizers
+    from repro_torch.train import cnn
+    ws = cnn.trainable(params)
+    x = x.clone().requires_grad_()
+    logits = lenet.apply(params, x, key, cfg)
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = -torch.sum(torch.gather(logp, 1, y.long()[:, None]))
+    grads = torch.autograd.grad(loss, ws + [x])
+    optimizers.analog_sgd(ws, grads[:-1])
+    return logits.detach().cpu(), grads[-1].cpu(), {
+        n: params[n].w.detach().cpu() for n in lenet.LAYERS}
+
+
+def step_reference(results):
+    import torch
+    from repro_torch.analog import presets
+    from repro_torch.models import lenet
+    from repro_torch.utils import prng
+    cfg = lenet.LeNetConfig.from_policy(presets.parse_policy(FUSED))
+    p_cpu = lenet.init(prng.key(7), cfg, device="cpu")
+    p_gpu = lenet.init(prng.key(7), cfg, device=DEV)
+    x, y = _lenet_images(LENET_BATCH, seed=5)
+    cpu = _one_step(p_cpu, x.cpu(), y.cpu(), prng.key(8), cfg)
+    gpu = _one_step(p_gpu, x, y, prng.key(8), cfg)
+    lerr = float((cpu[0] - gpu[0]).abs().max())
+    xerr = float((cpu[1] - gpu[1]).abs().max() / cpu[1].abs().max())
+    ok = lerr <= STEP_LOGIT_ATOL and xerr <= STEP_XBAR_RTOL
+    rows = {}
+    for n in lenet.LAYERS:
+        diff = (cpu[2][n] - gpu[2][n]).abs()
+        share = float((diff > STEP_W_ATOL).float().mean())
+        rows[n] = dict(share=share, max=float(diff.max()))
+        ok &= share <= STEP_W_SHARE and rows[n]["max"] <= STEP_W_MAX
+    print(f"[reference] FUSED step, card vs CPU: logits max|diff| {lerr:.2e}"
+          f" (tol {STEP_LOGIT_ATOL}), x_bar max|diff|/max|x_bar| "
+          f"{xerr:.2e} (tol {STEP_XBAR_RTOL}), weights "
+          + ", ".join(f"{n}: {r['share']:.1e} of entries > 1e-6, max "
+                      f"{r['max']:.1e}" for n, r in rows.items()))
+    results["step_reference"] = dict(logit_err=lerr, xbar_rel_err=xerr,
+                                     weights=rows, ok=ok)
+    check(ok, "the card's training step disagrees with the CPU step")
+
+
+# ---------------------------------------------------------------------------
+# (e) training kernels: times against bound, plain version and PyTorch
+# ---------------------------------------------------------------------------
+
+def _bound(byts, flops, count_ops):
+    """Least time in ms: the bytes over HBM's rate, or the read's fp32
+    multiply-adds plus the count products' operations, whichever is longer.
+    The count products multiply {0, +-1} streams, exact on the int8 tensor
+    cores, so they are charged at that rate."""
+    by_bytes = byts / HBM_BYTES_PER_S
+    by_ops = flops / FP32_FLOPS_PER_S + count_ops / INT8_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def _time_row(rows, kernel, shape, fk, fp, flib, names, byts, flops,
+              count_ops):
+    dev_ms = _device_ms(fk, names)
+    bound_ms, bound_by = _bound(byts, flops, count_ops)
+    row = dict(kernel=kernel, shape=shape, batch=LENET_BATCH,
+               ms=dev_ms if dev_ms is not None else _event_ms(fk),
+               ms_source="profiler" if dev_ms is not None else "events",
+               event_ms=_event_ms(fk), plain_ms=_event_ms(fp),
+               library_ms=_event_ms(flib), bound_ms=bound_ms,
+               bound_by=bound_by)
+    rows.append(row)
+    print(f"[time] {kernel:<15} {shape:<12} kernel {row['ms']:.4f} ms "
+          f"({row['ms_source']}; events {row['event_ms']:.4f}) bound "
+          f"{bound_ms:.5f} ms ({bound_by}) plain {row['plain_ms']:.4f} ms "
+          f"library {row['library_ms']:.4f} ms")
+
+
+def training_kernel_times(results):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import conv_mapping as cm
+    from repro_torch.kernels import bwd_update_mvm as kb
+    from repro_torch.kernels import conv_mvm as kc
+    from repro_torch.kernels import pulse_update as kp
+
+    rows = results["times"]
+    gains = torch.tensor([1.0, 1.0], device=DEV)
+    for name, vol, k, out in CONV_LAYERS:
+        for d in ((1, 13) if name == "K2" else (1,)):
+            shape = name if d == 1 else f"{name} #_d={d}"
+            geom, w, x = _conv_case(name, vol, k, out, d, seed=9)
+            p, m = geom.positions, out * d
+            nm_s = torch.ones(p, 1, device=DEV)
+            kw = dict(sigma=SIGMA, alpha=ALPHA, two_phase=True, d_avg=d)
+            x_nchw = x.permute(0, 3, 1, 2).contiguous()
+            w_oihw = w[:out, :geom.features].reshape(
+                out, geom.c, k, k).contiguous()
+            bias = w[:out, geom.features].contiguous()
+            _time_row(
+                rows, "conv_mvm", shape,
+                lambda: kc.conv_managed_mvm(w, x, geom, nm_s, (1, 2), **kw),
+                lambda: kc.conv_managed_mvm_plain(w, x, geom, nm_s, (1, 2),
+                                                  **kw),
+                lambda: F.conv2d(x_nchw, w_oihw, bias),
+                ("conv_managed", "managed_epilogue"),
+                4 * (x.numel() + w.numel() + p + p * out + p),
+                2.0 * p * geom.cols * m, 0.0)
+            dr = torch.randn(p, m, device=DEV)
+            bkw = dict(sigma=SIGMA, alpha=ALPHA, two_phase=True, bl=1)
+            cols = cm.gather_columns(x, geom)
+            sa = (torch.rand_like(cols) < 0.5).float()
+            sb = (torch.rand_like(dr) < 0.5).float()
+            _time_row(
+                rows, "conv_bwd_update", shape,
+                lambda: kb.conv_bwd_update(w, x, dr, geom, nm_s, (1, 2),
+                                           (3, 4), gains, **bkw),
+                lambda: kb.conv_bwd_update_plain(w, x, dr, geom, nm_s,
+                                                 (1, 2), (3, 4), gains,
+                                                 **bkw),
+                lambda: (torch.matmul(dr, w), torch.matmul(sb.T, sa),
+                         torch.matmul(sb.abs().T, sa.abs())),
+                ("bwd_update", "managed_epilogue"),
+                4 * (w.numel() + dr.numel() + x.numel() + p + 2
+                     + p * geom.cols + p + 2 * w.numel()),
+                2.0 * p * m * geom.cols, 4.0 * p * m * geom.cols)
+    g = torch.Generator(device=DEV).manual_seed(11)
+    for name, n_in, out in DENSE_LAYERS:
+        w = torch.randn(out, n_in + 1, generator=g, device=DEV)
+        x = torch.randn(LENET_BATCH, n_in + 1, generator=g, device=DEV)
+        dd = torch.randn(LENET_BATCH, out, generator=g, device=DEV)
+        nm_s = torch.ones(LENET_BATCH, 1, device=DEV)
+        bkw = dict(sigma=SIGMA, alpha=ALPHA, two_phase=True, bl=1)
+        sa = (torch.rand_like(x) < 0.5).float()
+        sb = (torch.rand_like(dd) < 0.5).float()
+        b = LENET_BATCH
+        _time_row(
+            rows, "bwd_update_mvm", name,
+            lambda: kb.bwd_update_mvm(w, dd, x, nm_s, (1, 2), (3, 4, 0),
+                                      gains, **bkw),
+            lambda: kb.bwd_update_mvm_plain(w, dd, x, nm_s, (1, 2),
+                                            (3, 4, 0), gains, **bkw),
+            lambda: (torch.matmul(dd, w), torch.matmul(sb.T, sa),
+                     torch.matmul(sb.abs().T, sa.abs())),
+            ("bwd_update", "managed_epilogue"),
+            4 * (w.numel() + dd.numel() + x.numel() + b + 2 + x.numel() + b
+                 + 2 * w.numel()),
+            2.0 * b * out * (n_in + 1), 4.0 * b * out * (n_in + 1))
+    for case, t, m, n in _count_shapes():
+        rws, cls = _streams(g, t, m, n)
+        _time_row(rows, "pulse_counts", case,
+                  lambda: kp.pulse_counts(rws, cls),
+                  lambda: kp.pulse_counts_plain(rws, cls),
+                  lambda: (torch.matmul(rws.T, cls),
+                           torch.matmul(rws.abs().T, cls.abs())),
+                  ("pulse_counts",), 4 * (t * (m + n) + 2 * m * n), 0.0,
+                  4.0 * t * m * n)
+
+
 def summary_line(results):
-    """One entry per kernel, at the decode shape most reads of the path
-    take (wg/wi 11008x4096, B=4); launches from the two-phase (managed) and
-    iterative (noisy) serving runs."""
+    """One entry per kernel at the shape named in KERNELS (decode wg/wi
+    11008x4096, B=4, for the read kernels; LeNet's K1, W3 or K1 BL=1 for the
+    training kernels), with the launches of the run named there."""
     kernels = []
     for kname, meta in KERNELS.items():
         t = next(r for r in results["times"] if r["kernel"] == kname
-                 and r["shape"].startswith("wg/wi") and r["batch"] == BATCH)
+                 and r["shape"].startswith(meta["shape"])
+                 and r["batch"] in (BATCH, LENET_BATCH))
         err = max(c["max_abs_err"] for c in results["checks"]
                   if c["kernel"] == kname)
-        run = "serve_two_phase" if kname == "managed_mvm" \
-            else "serve_iterative"
         kernels.append(dict(
             name=kname, route=meta["route"], source=meta["source"],
             replaces=meta["replaces"],
-            launches=results[run]["launches"][meta["kind"]],
+            launches=results[meta["run"]]["launches"][meta["kind"]],
             max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"]))
@@ -487,8 +1079,17 @@ def main():
           f"got {counts}")
     phase("r: small-input reference (card vs CPU)")
     smoke_reference(results)
+    phase("f: training kernels vs plain versions")
+    training_kernels_vs_plain(results)
+    phase("g: LeNet training on the card")
+    lenet_training(results)
+    phase("h: learning")
+    lenet_learning(results)
+    phase("r2: one training step, card vs CPU")
+    step_reference(results)
     phase("e: kernel times")
     kernel_times(results)
+    training_kernel_times(results)
     results["seconds"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -24,9 +24,10 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.analog.modules import AnalogLinear, AnalogMeta, AnalogState
+from repro_torch.analog.modules import (AnalogLinear, AnalogMeta,
+                                        AnalogState, ConvSpec)
 from repro_torch.analog.policy import AnalogPolicy
-from repro_torch.core.device import RPUConfig
+from repro_torch.core.device import DeviceMaps, RPUConfig
 from repro_torch.utils import prng
 
 Params = Any
@@ -123,29 +124,49 @@ def _port_cfg(cfg_like) -> RPUConfig:
 
 
 def _is_jax_analog(node: Any) -> bool:
-    return isinstance(node, dict) and set(node) == {"w", "seed", "meta"}
+    return isinstance(node, dict) and set(node) - {"maps"} == {
+        "w", "seed", "meta"}
+
+
+def _port_conv(spec) -> Optional[ConvSpec]:
+    if spec is None:
+        return None
+    pad = spec.padding
+    if not isinstance(pad, str):
+        pad = tuple((int(a), int(b)) for a, b in pad)
+    return ConvSpec(kernel=tuple(int(v) for v in spec.kernel),
+                    stride=tuple(int(v) for v in spec.stride), padding=pad,
+                    dilation=tuple(int(v) for v in spec.dilation))
 
 
 def from_jax_params(tree: Params, *, device="cuda") -> Params:
-    """The JAX package's LM parameter tree, as numpy arrays, -> the port's.
+    """The JAX package's parameter tree (the LM's or LeNet's), as numpy
+    arrays, -> the port's.
 
     ``tree`` holds nested dicts of numpy arrays; each ``AnalogState`` of the
     JAX tree arrives as ``{"w": array, "seed": key data, "meta": meta}``
-    (the JAX meta object, read by attribute).  Stacked sites — under the
-    ``layers`` key every leaf has a leading layer axis — are unstacked into
-    a list of per-layer dicts, one tile per layer.
+    plus ``"maps": {"dw_up", "dw_dn", "bound"}`` when its device maps are
+    materialized (the JAX meta object is read by attribute, a conv layer's
+    geometry from ``meta.conv``).  Stacked sites — under the ``layers`` key
+    every leaf has a leading layer axis — are unstacked into a list of
+    per-layer dicts, one tile per layer.
     """
     def leaf(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
     def analog(node, i: Optional[int]) -> AnalogState:
-        w = node["w"] if i is None else node["w"][i]
-        seed = node["seed"] if i is None else node["seed"][i]
+        pick = (lambda a: a) if i is None else (lambda a: a[i])
         m = node["meta"]
         meta = AnalogMeta(cfg=_port_cfg(m.cfg), bias=bool(m.bias),
-                          kind=m.kind, label=m.label)
-        return AnalogState(leaf(w).contiguous(), None,
-                           prng.from_key_data(seed), meta)
+                          kind=m.kind, conv=_port_conv(getattr(m, "conv",
+                                                               None)),
+                          label=m.label)
+        maps = node.get("maps")
+        if maps is not None:
+            maps = DeviceMaps(*(leaf(pick(maps[k])).contiguous()
+                                for k in ("dw_up", "dw_dn", "bound")))
+        return AnalogState(leaf(pick(node["w"])).contiguous(), maps,
+                           prng.from_key_data(pick(node["seed"])), meta)
 
     def conv(node, i: Optional[int]):
         if _is_jax_analog(node):

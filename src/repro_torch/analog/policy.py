@@ -55,3 +55,14 @@ class AnalogPolicy:
             if rule.matches(path):
                 return rule
         return None
+
+    def resolve(self, path: str) -> Optional[RPUConfig]:
+        """Device config for a layer path; ``None`` means digital."""
+        rule = self.match(path)
+        return None if rule is None else rule.cfg
+
+    def label_for(self, path: str) -> str:
+        rule = self.match(path)
+        if rule is None or rule.cfg is None:
+            return "digital"
+        return rule.label

@@ -14,12 +14,17 @@ of its two reads.
 Iterative BM's data-dependent loop is a Python loop here: each retry
 decision reads the saturation flags back to the host (one ``.item()``
 synchronisation per check).
+
+Update management (UM) returns the pulse gains ``(C_x, C_d)`` as 0-d
+float32 tensors on the data's device, so the update cycle never reads a
+device maximum back to the host.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.device import RPUConfig
@@ -83,6 +88,17 @@ def with_bound_management_two_phase(analog_mvm: AnalogMVM, x: Tensor,
     return y, sat1 & sat2
 
 
+def bounded(cfg: RPUConfig) -> bool:
+    """True when BM is on and the output bound is finite."""
+    return cfg.bound_management and cfg.out_bound != float("inf")
+
+
+def bm_is_iterative(cfg: RPUConfig) -> bool:
+    """True when BM runs the data-dependent halve-and-retry loop, which no
+    single kernel launch can hold (off and two-phase are fixed-latency)."""
+    return bounded(cfg) and cfg.bm_mode != "two_phase"
+
+
 def with_management(analog_mvm: AnalogMVM, x: Tensor, key: prng.Key,
                     cfg: RPUConfig, *, backward: bool
                     ) -> Tuple[Tensor, Tensor]:
@@ -91,8 +107,8 @@ def with_management(analog_mvm: AnalogMVM, x: Tensor, key: prng.Key,
     use_nm = cfg.noise_management and (backward or cfg.nm_forward)
     s_nm = nm_scale(x) if use_nm else None
 
-    if cfg.bound_management and cfg.out_bound != float("inf"):
-        if cfg.bm_mode == "two_phase":
+    if bounded(cfg):
+        if not bm_is_iterative(cfg):
             return with_bound_management_two_phase(
                 analog_mvm, x, key, init_scale=s_nm)
         return with_bound_management(
@@ -102,3 +118,45 @@ def with_management(analog_mvm: AnalogMVM, x: Tensor, key: prng.Key,
         y, sat = analog_mvm(x / s_nm, key)
         return y * s_nm, sat
     return analog_mvm(x, key)
+
+
+# ---------------------------------------------------------------------------
+# Update management
+# ---------------------------------------------------------------------------
+
+def amplification_factors(cfg: RPUConfig, lr: float) -> np.float32:
+    """Base amplification ``C = sqrt(eta / (BL * dw_min))`` shared by rows
+    and columns, in float32 arithmetic (the layers hold ``eta`` as a float32
+    scalar, as the JAX package's layers do)."""
+    ratio = np.float32(lr) / np.float32(cfg.bl * cfg.dw_min)
+    return np.sqrt(ratio, dtype=np.float32)
+
+
+def um_factors_from_max(x_max: Optional[Tensor], d_max: Optional[Tensor],
+                        cfg: RPUConfig, lr: float, *, device=None
+                        ) -> Tuple[Tensor, Tensor]:
+    """Pulse gains from the scalar extrema ``max|x|`` and ``max|d|`` (0-d
+    tensors; unused without UM, when ``device`` places the constants)."""
+    c = float(amplification_factors(cfg, lr))
+    if not cfg.update_management:
+        dev = device if x_max is None else x_max.device
+        t = torch.tensor(c, dtype=cfg.dtype, device=dev)
+        return t, t
+    x_max = torch.clamp_min(x_max, _EPS)
+    d_max = torch.clamp_min(d_max, _EPS)
+    m = torch.clamp(torch.sqrt(d_max / x_max), 1e-3, 1e3)
+    # a float / tensor would be a reciprocal times c in torch: divide a
+    # tensor so it rounds like the true division
+    return (m * c).to(cfg.dtype), torch.div(torch.full_like(m, c), m).to(
+        cfg.dtype)
+
+
+def um_factors(x: Tensor, d: Tensor, cfg: RPUConfig, lr: float
+               ) -> Tuple[Tensor, Tensor]:
+    """Update-management pulse gains over every axis of the activations
+    ``x`` and errors ``d`` (``C_x = C_d = C`` without UM; with UM
+    ``m = sqrt(max|d| / max|x|)``, ``C_x = m C``, ``C_d = C / m``)."""
+    if not cfg.update_management:
+        return um_factors_from_max(None, None, cfg, lr, device=x.device)
+    return um_factors_from_max(torch.amax(torch.abs(x)),
+                               torch.amax(torch.abs(d)), cfg, lr)

@@ -1,4 +1,4 @@
-"""AnalogTile: the physical RPU crossbar read (forward cycle).
+"""AnalogTile: the physical RPU crossbar array — its reads and its update.
 
 A tile holds the physical weights ``(#_d * out_f, in_f)`` of one logical
 matrix.  Every read draws fresh Gaussian noise (sigma) and clips at the
@@ -6,20 +6,27 @@ integrator bound (+-alpha); contractions longer than the physical array
 (4096, paper Discussion) split into segments, each an independent physical
 read whose noise and bound apply before the digital sum.
 
+The backward cycle reads ``W^T delta`` with the error replicated to the
+#_d physical row blocks (:func:`replicate_delta`); with
+``cfg.fuse_bwd_update`` the backward read and the pulse update of a layer
+run as one kernel launch (:func:`tile_backward_update`).
+
 ``cfg.use_pallas`` routes the reads through the CUDA kernels
 (``repro_torch.kernels``); otherwise the plain-PyTorch reference below runs
 (it is also the kernels' oracle).  The sharded tile grid
-(``cfg.tile_grid``) is not part of this package yet.
+(``cfg.tile_grid``) and the streaming chunks (``update_chunk``,
+``conv_stream_chunk``) are not part of this package yet.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import management
-from repro_torch.core.device import RPUConfig
+from repro_torch.core.device import DeviceMaps, RPUConfig, sample_device_maps
 from repro_torch.utils import fastrng, prng
 
 Tensor = torch.Tensor
@@ -29,9 +36,43 @@ def _num_splits(contraction_dim: int, limit: int) -> int:
     return max(1, -(-contraction_dim // limit))
 
 
-def _check_supported(cfg: RPUConfig) -> None:
+def check_supported(cfg: RPUConfig) -> None:
+    """Raise for the subsystems this package does not have yet."""
     if cfg.tile_grid is not None and tuple(cfg.tile_grid) != (1, 1):
         raise NotImplementedError("tile grids are not ported yet")
+    if cfg.update_chunk is not None or cfg.conv_stream_chunk is not None:
+        raise NotImplementedError("streaming chunks are not ported yet")
+
+
+def init_tile(key: prng.Key, out_features: int, in_features: int,
+              cfg: RPUConfig, init_scale: Optional[float] = None, *,
+              device="cpu") -> Tuple[Tensor, Optional[DeviceMaps], prng.Key]:
+    """A new tile ``(w, maps, seed)``: uniform initial weights (within
+    ``+-min(1/sqrt(in), w_bound/2)``) replicated over the #_d device rows,
+    and the device maps sampled from the seed (None with seeded maps, else
+    the weights clipped to each device's own bound)."""
+    k_w, k_dev = prng.split(key)
+    if init_scale is None:
+        init_scale = min(1.0 / (in_features ** 0.5), cfg.w_bound / 2.0)
+    w = torch.from_numpy(prng.uniform(k_w, (out_features, in_features),
+                                      -init_scale, init_scale))
+    w = w.to(device=device, dtype=cfg.dtype).repeat(cfg.devices_per_weight,
+                                                    1)
+    maps = None
+    if not cfg.seeded_maps:
+        maps = sample_device_maps(k_dev, w.shape[0], w.shape[1], cfg,
+                                  device=device)
+        w = torch.clamp(w, -maps.bound, maps.bound)
+    return w.contiguous(), maps, k_dev
+
+
+def tile_maps(w: Tensor, maps: Optional[DeviceMaps], seed: prng.Key,
+              cfg: RPUConfig) -> DeviceMaps:
+    """Device maps: stored, or regenerated from the tile seed."""
+    if maps is not None:
+        return maps
+    return sample_device_maps(seed, w.shape[0], w.shape[1], cfg,
+                              device=w.device)
 
 
 def analog_mvm(w: Tensor, x: Tensor, key: prng.Key, cfg: RPUConfig, *,
@@ -78,12 +119,6 @@ def analog_mvm_reference(w: Tensor, x: Tensor, key: prng.Key,
     return y.reshape(*batch_shape, y.shape[-1]), sat.reshape(batch_shape)
 
 
-def _bm_is_iterative(cfg: RPUConfig) -> bool:
-    """True when BM runs the data-dependent halve-and-retry loop."""
-    return (cfg.bound_management and cfg.out_bound != float("inf")
-            and cfg.bm_mode != "two_phase")
-
-
 def managed_mvm_reference(w: Tensor, x: Tensor, key: prng.Key,
                           cfg: RPUConfig, *, transpose: bool = False,
                           backward: bool = False,
@@ -116,8 +151,8 @@ def tile_forward(w: Tensor, x: Tensor, key: prng.Key, cfg: RPUConfig, *,
     the whole managed read is the ``managed_mvm`` kernel; iterative BM runs
     its retry loop over one ``noisy_mvm`` kernel launch per read.
     """
-    _check_supported(cfg)
-    if cfg.use_pallas and not _bm_is_iterative(cfg):
+    check_supported(cfg)
+    if cfg.use_pallas and not management.bm_is_iterative(cfg):
         from repro_torch.kernels import ops as kops
         y, sat = kops.managed_mvm(w, x, key, cfg, transpose=False,
                                   backward=False, row_offset=row_offset,
@@ -132,3 +167,86 @@ def tile_forward(w: Tensor, x: Tensor, key: prng.Key, cfg: RPUConfig, *,
                                              backward=False)
     y = _replica_mean(y_phys, cfg.devices_per_weight)
     return (y, sat) if return_sat else y
+
+
+def replicate_delta(delta: Tensor, d: int,
+                    rows_phys: Optional[int] = None) -> Tensor:
+    """Replicate a logical error ``(..., out_f)`` to the #_d-replicated
+    physical row layout ``(..., #_d * out_f)`` (replica blocks side by
+    side); ``rows_phys`` pins the result against the physical row count."""
+    if d > 1:
+        delta = delta.repeat(*([1] * (delta.dim() - 1)), d)
+    if rows_phys is not None and delta.shape[-1] != rows_phys:
+        raise ValueError(f"replicated delta {tuple(delta.shape)} does not "
+                         f"match {rows_phys} physical rows")
+    return delta
+
+
+def div_replicas(z: Tensor, d: int) -> Tensor:
+    """``z / d`` as a product with the float32 reciprocal of ``d``: how XLA
+    rounds a division by a constant in the JAX package's compiled steps, and
+    how torch divides a CUDA tensor by a Python number."""
+    return z * float(np.float32(1.0) / np.float32(d))
+
+
+def tile_backward(w: Tensor, delta: Tensor, key: prng.Key, cfg: RPUConfig,
+                  *, return_sat: bool = False,
+                  row_offset: Optional[int] = None,
+                  total_rows: Optional[int] = None):
+    """Backward cycle ``z = W_eff^T delta``: the error drives all #_d
+    replica row blocks, the column currents sum over replicas and the
+    digital domain divides by #_d.  Routing mirrors :func:`tile_forward`
+    (NM applies to the backward read whenever enabled)."""
+    check_supported(cfg)
+    d = cfg.devices_per_weight
+    delta = replicate_delta(delta, d, rows_phys=w.shape[0])
+    if cfg.use_pallas and not management.bm_is_iterative(cfg):
+        from repro_torch.kernels import ops as kops
+        z, sat = kops.managed_mvm(w, delta, key, cfg, transpose=True,
+                                  backward=True, row_offset=row_offset,
+                                  total_rows=total_rows)
+    else:
+        def mvm(dd, kk):
+            return analog_mvm(w, dd, kk, cfg, transpose=True,
+                              row_offset=row_offset, total_rows=total_rows)
+
+        z, sat = management.with_management(mvm, delta, key, cfg,
+                                            backward=True)
+    if d > 1:
+        z = div_replicas(z, d)
+    return (z, sat) if return_sat else z
+
+
+def tile_backward_update(w: Tensor, maps: DeviceMaps, x: Tensor, g: Tensor,
+                         k_read: prng.Key, k_upd: prng.Key, cfg: RPUConfig,
+                         lr: float) -> Tuple[Tensor, Tensor]:
+    """Backward and update cycles in one fused kernel launch
+    (``kernels/bwd_update_mvm.py``): exactly :func:`tile_backward` under
+    ``k_read`` followed by the pulse update of ``(x, -g)`` under ``k_upd``
+    (its 3-way split into A-stream, B-stream and ctoc keys), with the same
+    digital :func:`update.finalize_counts`.  Callers gate on
+    ``kernels.bwd_update_mvm.bwd_update_eligible``.  Returns ``(z, new_w)``:
+    the replica-averaged transpose read and the updated weights."""
+    from repro_torch.core import update as update_lib
+    from repro_torch.kernels import ops as kops
+
+    d = cfg.devices_per_weight
+    g_rep = replicate_delta(g, d, rows_phys=w.shape[0])
+    k_a, k_b, k_c = prng.split(k_upd, 3)
+    z, _sat, count_up, count_dn = kops.bwd_update_mvm(
+        w, x, g_rep, k_read, k_a, k_b, cfg, lr)
+    if d > 1:
+        z = div_replicas(z, d)
+    return z, update_lib.finalize_counts(w, maps, count_up, count_dn, k_c,
+                                         cfg)
+
+
+def tile_update(w: Tensor, maps: Optional[DeviceMaps], seed: prng.Key,
+                x: Tensor, delta: Tensor, key: prng.Key, cfg: RPUConfig,
+                lr: float) -> Tensor:
+    """Update cycle: the stochastic-pulse outer-product update (Eq. 1) of
+    the activations ``x`` and errors ``delta``; leading axes are flattened
+    into serial vector pairs.  Returns the new physical weights."""
+    from repro_torch.core import update as update_lib
+    return update_lib.pulse_update(w, tile_maps(w, maps, seed, cfg), x,
+                                   delta, key, cfg, lr)

@@ -1,0 +1,153 @@
+"""Stochastic-pulse update cycle (Eq. 1) as coincidence counts.
+
+The hardware streams ``BL`` pulse slots; column driver ``j`` fires with
+probability ``min(|C_x x_j|, 1)`` (polarity ``sign(x_j)``), row driver ``i``
+with probability ``min(|C_d d_i|, 1)`` (polarity ``sign(d_i)``).  A device
+increments by ``dw_up`` on a coincidence of equal polarity and decrements by
+``dw_dn`` otherwise, with cycle-to-cycle variation per event.  With signed
+streams ``A (T, N)`` and ``B (T, M)`` (entries 0, +-1; T = samples x BL)
+
+    count_up = (|B|^T |A| + B^T A) / 2 ,  count_dn = (|B|^T |A| - B^T A) / 2
+
+are exact integers in float32, so any blocking of the contraction gives the
+same counts; :func:`finalize_counts` (device maps, cycle-to-cycle noise,
+per-device bound clip) is the one inexact step, shared by every update path.
+
+Streams come from the counter hash (``utils/fastrng.py``): the element of
+row ``r``, slot ``s`` and driver ``j`` draws ``uniform24(mix(e ^ mix(seed)))``
+at ``e = ((row_offset + r) * BL + s) * n + j`` (u32), the JAX package's
+layout.  Under ``cfg.use_pallas`` the counts go through the pulse-count
+kernel (``kernels/pulse_update.py``); the fused backward+update kernel
+regenerates the same streams on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import management
+from repro_torch.core.device import DeviceMaps, RPUConfig
+from repro_torch.utils import fastrng, prng
+
+Tensor = torch.Tensor
+_M32 = 0xFFFFFFFF
+
+
+def pulse_probabilities(v: Tensor, gain: Tensor) -> Tuple[Tensor, Tensor]:
+    """Firing probability and polarity per driver."""
+    return torch.clamp(torch.abs(gain * v), 0.0, 1.0), torch.sign(v)
+
+
+def signed_streams(seed: int, v: Tensor, gain: Tensor, bl: int, *,
+                   row_offset: Optional[int] = None) -> Tensor:
+    """Signed pulse streams ``(..., BL, n)`` of the drivers ``v (..., n)``
+    from the u32 ``seed`` word; ``row_offset`` shifts the counters by that
+    many rows of a larger logical batch."""
+    p, sgn = pulse_probabilities(v, gain)
+    n = v.shape[-1]
+    shape = (*v.shape[:-1], bl, n)
+    off = None if row_offset is None else (int(row_offset) * bl * n) & _M32
+    u = fastrng.uniform24(fastrng.bits_from_seed(seed, shape, off,
+                                                 device=v.device))
+    fire = (u < p[..., None, :]).to(v.dtype)
+    return fire * sgn[..., None, :]
+
+
+def sample_signed_streams(key: prng.Key, v: Tensor, gain: Tensor, bl: int,
+                          fast_rng: bool = True, *,
+                          row_offset: Optional[int] = None) -> Tensor:
+    """Signed pulse streams drawn from ``key`` (the counter-hash RNG)."""
+    if not fast_rng:
+        raise NotImplementedError(
+            "only the counter-hash pulse streams (fast_rng=True) are ported")
+    return signed_streams(fastrng.key_to_seed(key), v, gain, bl,
+                          row_offset=row_offset)
+
+
+def coincidence_counts(streams_rows: Tensor, streams_cols: Tensor
+                       ) -> Tuple[Tensor, Tensor]:
+    """Up/down coincidence counts ``(M, N)`` of signed streams
+    ``(..., BL, M)`` and ``(..., BL, N)``, contracting all leading axes."""
+    from repro_torch.kernels.pulse_update import pulse_counts_plain
+    m = streams_rows.shape[-1]
+    n = streams_cols.shape[-1]
+    return pulse_counts_plain(streams_rows.reshape(-1, m),
+                              streams_cols.reshape(-1, n))
+
+
+def dw_from_counts(count_up: Tensor, count_dn: Tensor, maps: DeviceMaps,
+                   k_c: prng.Key, cfg: RPUConfig) -> Tensor:
+    """Physical ``DW`` from the counts: device maps plus cycle-to-cycle
+    variation (one ``(M, N)`` counter-hash normal draw from ``k_c``)."""
+    dw = count_up * maps.dw_up - count_dn * maps.dw_dn
+    if cfg.dw_min_ctoc > 0.0:
+        if not cfg.fast_rng:
+            raise NotImplementedError(
+                "only the counter-hash ctoc noise (fast_rng=True) is ported")
+        xi = fastrng.normal(k_c, dw.shape, device=dw.device)
+        var = count_up * maps.dw_up ** 2 + count_dn * maps.dw_dn ** 2
+        dw = dw + cfg.dw_min_ctoc * torch.sqrt(var) * xi
+    return dw.to(cfg.dtype)
+
+
+def finalize_counts(w: Tensor, maps: DeviceMaps, count_up: Tensor,
+                    count_dn: Tensor, k_c: prng.Key, cfg: RPUConfig
+                    ) -> Tensor:
+    """One update cycle's counts applied to the physical weights: maps,
+    ctoc noise and the per-device bound clip."""
+    dw = dw_from_counts(count_up, count_dn, maps, k_c, cfg)
+    return torch.clamp(w + dw, -maps.bound, maps.bound)
+
+
+def stream_counts(x: Tensor, delta: Tensor, cx: Tensor, cd: Tensor,
+                  k_a: prng.Key, k_b: prng.Key, cfg: RPUConfig, *,
+                  row_offset: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    """Counts of (column, row) driver pairs: streams sampled here, counted
+    by the pulse-count kernel under ``cfg.use_pallas`` (else the plain
+    two-product version)."""
+    a = sample_signed_streams(k_a, x, cx, cfg.bl, cfg.fast_rng,
+                              row_offset=row_offset)
+    b = sample_signed_streams(k_b, delta, cd, cfg.bl, cfg.fast_rng,
+                              row_offset=row_offset)
+    if cfg.use_pallas:
+        from repro_torch.kernels import ops as kops
+        return kops.pulse_counts(b, a)
+    return coincidence_counts(b, a)
+
+
+def pulse_update(w: Tensor, maps: DeviceMaps, x: Tensor, delta: Tensor,
+                 key: prng.Key, cfg: RPUConfig, lr: float) -> Tensor:
+    """Full update cycle on the physical weights.  ``delta`` is the logical
+    error ``(..., out_f)``; it is replicated to the #_d physical row blocks
+    here (independent streams per physical row driver)."""
+    from repro_torch.core.tile import check_supported, replicate_delta
+    check_supported(cfg)
+    delta = replicate_delta(delta, cfg.devices_per_weight,
+                            rows_phys=w.shape[0])
+    if x.dim() == 1:
+        x, delta = x[None], delta[None]
+    k_a, k_b, k_c = prng.split(key, 3)
+    cx, cd = management.um_factors(x, delta, cfg, lr)
+    count_up, count_dn = stream_counts(x, delta, cx, cd, k_a, k_b, cfg)
+    return finalize_counts(w, maps, count_up, count_dn, k_c, cfg)
+
+
+def pulse_update_streamed(w: Tensor, maps: DeviceMaps, cols: Tensor,
+                          delta_phys: Tensor, key: prng.Key, cfg: RPUConfig,
+                          lr: float, *, um_maxima=None) -> Tensor:
+    """Update cycle over im2col columns ``(P, cols)`` and replicated error
+    rows ``(P, rows_phys)`` — the conv entry, in one chunk.  ``um_maxima``
+    are the precomputed ``(max|x|, max|d|)`` (the window max of the
+    activation volume), required under update management."""
+    if um_maxima is None and cfg.update_management:
+        raise ValueError("update management over conv columns needs the "
+                         "precomputed (x_max, d_max) extrema")
+    k_a, k_b, k_c = prng.split(key, 3)
+    x_max, d_max = um_maxima if um_maxima is not None else (None, None)
+    cx, cd = management.um_factors_from_max(x_max, d_max, cfg, lr,
+                                            device=cols.device)
+    count_up, count_dn = stream_counts(cols, delta_phys, cx, cd, k_a, k_b,
+                                       cfg, row_offset=0)
+    return finalize_counts(w, maps, count_up, count_dn, k_c, cfg)

@@ -1,4 +1,5 @@
-// Shared body of the analog array-read kernels (noisy_mvm.cu, managed_mvm.cu).
+// Shared body of the analog array-read kernels (noisy_mvm.cu, managed_mvm.cu,
+// and through managed_read.cuh conv_mvm.cu and bwd_update_mvm.cu).
 //
 // A physical array read
 //     y = sum_seg clip(W_seg x_seg + sigma * xi, +-alpha)
@@ -26,7 +27,10 @@
 //     so many loads stay in flight: the path is bound by the bytes of W.
 //   Tiled (everything else: prefill, transpose).  One block computes a
 //     64 x 64 tile of outputs, 4 x 4 per thread, staging 16-deep k-tiles of
-//     W and x through shared memory: bound by fp32 FMA throughput.
+//     W and x through shared memory: bound by fp32 FMA throughput.  Its x
+//     loader is a template parameter, so the conv read builds patch
+//     elements by index from the activation volume (implicit im2col) in
+//     the same loop.
 #pragma once
 
 #include <cstdint>
@@ -137,10 +141,21 @@ struct Smem {
   alignas(16) float xs[BK][BM + PAD];
 };
 
+// Input element (row m, contraction index k) of a dense row-major x.
+struct DenseX {
+  __device__ __forceinline__ float operator()(const ReadArgs& a, int m,
+                                              int k) const {
+    return a.x[(size_t)m * a.K + k];
+  }
+};
+
 // Stage one k-tile [kb, ke) of W (tile columns n0..n0+BN) and x (rows
-// m0..m0+BM) into shared memory, zero-filling out-of-range entries.
+// m0..m0+BM) into shared memory, zero-filling out-of-range entries.  The
+// loader xl reads x(m, k): dense rows, or a patch built by index (conv).
+template <class XL = DenseX>
 __device__ __forceinline__ void load_tile(Smem& sm, const ReadArgs& a,
-                                          int m0, int n0, int kb, int ke) {
+                                          int m0, int n0, int kb, int ke,
+                                          const XL& xl = XL()) {
   const int t = threadIdx.x;
   const int C = a.transpose ? a.out_dim : a.K;  // physical column count
 #pragma unroll
@@ -165,20 +180,22 @@ __device__ __forceinline__ void load_tile(Smem& sm, const ReadArgs& a,
     const int idx = t + i * THREADS;
     const int mm = idx / BK, kk = idx % BK;
     const int k = kb + kk, m = m0 + mm;
-    sm.xs[kk][mm] = (k < ke && m < a.B) ? a.x[(size_t)m * a.K + k] : 0.0f;
+    sm.xs[kk][mm] = (k < ke && m < a.B) ? xl(a, m, k) : 0.0f;
   }
 }
 
 // The contraction of one segment [ks, ke) into this thread's 4 x 4 outputs.
+template <class XL = DenseX>
 __device__ __forceinline__ void segment_product(Smem& sm, const ReadArgs& a,
                                                 int m0, int n0, int ks,
-                                                int ke, float (&seg)[OWN]) {
+                                                int ke, float (&seg)[OWN],
+                                                const XL& xl = XL()) {
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
 #pragma unroll
   for (int o = 0; o < OWN; ++o) seg[o] = 0.0f;
   for (int kb = ks; kb < ke; kb += BK) {
     __syncthreads();  // previous tile fully consumed
-    load_tile(sm, a, m0, n0, kb, ke);
+    load_tile(sm, a, m0, n0, kb, ke, xl);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {

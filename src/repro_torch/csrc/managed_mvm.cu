@@ -22,22 +22,9 @@
 // warp-per-column path, fp32 FMAs at prefill through the tiled path); the
 // partials add 2 * B * out * 4 bytes of writes and reads, small against W at
 // every shape of the serving path.
-#include "analog_read.cuh"
+#include "managed_read.cuh"
 
 namespace analog {
-
-// Both reads of one segment sum v of (row m, column col): accumulate into
-// y1/y2 and raise the flags.
-__device__ __forceinline__ void managed_value(
-    const ReadArgs& a, float v, float s, uint32_t seed1_m, uint32_t seed2_m,
-    int two_phase, float retry_scale, uint32_t e, float& y1, float& y2,
-    bool& f1, bool& f2) {
-  const float v1 = __fdiv_rn(v, s);
-  y1 = __fadd_rn(y1, read_value(v1, seed1_m, e, a, f1));
-  if (two_phase)
-    y2 = __fadd_rn(y2, read_value(__fdiv_rn(v1, retry_scale), seed2_m, e, a,
-                                  f2));
-}
 
 // Decode reads: one warp per output column (see analog_read.cuh).
 __global__ void __launch_bounds__(THREADS)
@@ -78,76 +65,9 @@ __global__ void __launch_bounds__(THREADS)
                         float* __restrict__ acc2, int* __restrict__ sat1,
                         int* __restrict__ sat2) {
   __shared__ Smem sm;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const uint32_t seed1_m = mix32(seed1), seed2_m = mix32(seed2);
-
-  float seg[OWN], y1[OWN], y2[OWN];
-  bool f1[OWN], f2[OWN];
-#pragma unroll
-  for (int o = 0; o < OWN; ++o) {
-    y1[o] = 0.0f;
-    y2[o] = 0.0f;
-    f1[o] = false;
-    f2[o] = false;
-  }
-  for (int si = 0; si < a.n_seg; ++si) {
-    const int ks = si * a.seg_len;
-    const int ke = min(a.K, ks + a.seg_len);
-    segment_product(sm, a, m0, n0, ks, ke, seg);
-#pragma unroll
-    for (int o = 0; o < OWN; ++o) {
-      int mm, nn;
-      owned(o, mm, nn);
-      const int m = m0 + mm, col = n0 + nn;
-      if (m < a.B && col < a.out_dim)
-        managed_value(a, seg[o], nm[m], seed1_m, seed2_m, two_phase,
-                      retry_scale, counter(a, m, si, col), y1[o], y2[o],
-                      f1[o], f2[o]);
-    }
-  }
-#pragma unroll
-  for (int o = 0; o < OWN; ++o) {
-    int mm, nn;
-    owned(o, mm, nn);
-    const int m = m0 + mm, col = n0 + nn;
-    if (m < a.B && col < a.out_dim) {
-      const size_t i = (size_t)m * a.out_dim + col;
-      acc1[i] = y1[o];
-      if (two_phase) acc2[i] = y2[o];
-      if (f1[o]) atomicOr(&sat1[m], 1);
-      if (f2[o]) atomicOr(&sat2[m], 1);
-    }
-  }
-}
-
-// select_and_average of the shared managed-read body: one thread per
-// (row, logical output); residual flag written by column 0.
-__global__ void managed_epilogue_kernel(
-    const float* __restrict__ acc1, const float* __restrict__ acc2,
-    const int* __restrict__ sat1, const int* __restrict__ sat2,
-    const float* __restrict__ nm, float* __restrict__ y,
-    int* __restrict__ residual, int B, int out_f, int d_avg, int two_phase,
-    float retry_scale) {
-  const size_t n = (size_t)B * out_f;
-  for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < n;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    const int b = (int)(idx / out_f), j = (int)(idx % out_f);
-    const bool sel = two_phase && sat1[b] != 0;
-    const float s = nm[b];
-    const size_t row = (size_t)b * d_avg * out_f;
-    float acc = 0.0f;
-    for (int r = 0; r < d_avg; ++r) {
-      const size_t i = row + (size_t)r * out_f + j;
-      const float v = sel ? __fmul_rn(__fmul_rn(acc2[i], retry_scale), s)
-                          : __fmul_rn(acc1[i], s);
-      acc = (r == 0) ? v : __fadd_rn(acc, v);
-    }
-    y[idx] = d_avg > 1 ? __fdiv_rn(acc, (float)d_avg) : acc;
-    if (j == 0)
-      residual[b] = two_phase ? (sat1[b] != 0 && sat2[b] != 0)
-                              : (sat1[b] != 0);
-  }
+  managed_tile_block(sm, a, DenseX(), nm, mix32(seed1), mix32(seed2),
+                     two_phase, retry_scale, acc1, acc2, sat1, sat2,
+                     blockIdx.y * BM, blockIdx.x * BN);
 }
 
 }  // namespace analog
@@ -179,14 +99,7 @@ extern "C" int managed_mvm_launch(
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int out_f = out_phys / d_avg;
-  const size_t n = (size_t)B * out_f;
-  const int threads = 256;
-  const int blocks = (int)((n + threads - 1) / threads < 4096
-                               ? (n + threads - 1) / threads
-                               : 4096);
-  analog::managed_epilogue_kernel<<<blocks > 0 ? blocks : 1, threads, 0, s>>>(
-      acc1, acc2, sat1, sat2, nm, y, residual, B, out_f, d_avg, two_phase,
-      retry_scale);
+  analog::launch_managed_epilogue(acc1, acc2, sat1, sat2, nm, y, residual, B,
+                                  out_phys, d_avg, two_phase, retry_scale, s);
   return static_cast<int>(cudaGetLastError());
 }

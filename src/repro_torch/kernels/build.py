@@ -21,7 +21,8 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-KERNELS = ("noisy_mvm", "managed_mvm")
+KERNELS = ("noisy_mvm", "managed_mvm", "conv_mvm", "pulse_counts",
+           "bwd_update_mvm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

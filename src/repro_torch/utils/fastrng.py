@@ -74,12 +74,20 @@ def _offset_counter(shape: Sequence[int], offset: Optional[int],
     return e & _M32
 
 
+def bits_from_seed(seed: int, shape: Sequence[int],
+                   offset: Optional[int] = None, *, device="cpu"
+                   ) -> torch.Tensor:
+    """u32 random words (int64 tensor) of the u32 ``seed`` word at the
+    row-major counters of ``shape`` shifted by ``offset``."""
+    seed_m = mix_int(int(seed) & _M32)
+    return mix(_offset_counter(shape, offset, device) ^ seed_m)
+
+
 def bits(key: Key, shape: Sequence[int], offset: Optional[int] = None, *,
          device="cpu") -> torch.Tensor:
     """u32 random words (int64 tensor) at the row-major counters of
     ``shape`` shifted by ``offset``."""
-    seed_m = mix_int(key_to_seed(key))
-    return mix(_offset_counter(shape, offset, device) ^ seed_m)
+    return bits_from_seed(key_to_seed(key), shape, offset, device=device)
 
 
 def uniform(key: Key, shape: Sequence[int], dtype=torch.float32, *,

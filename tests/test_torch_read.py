@@ -230,7 +230,9 @@ def test_launch_counters_untouched_on_cpu():
                      cfg)
     tops.noisy_mvm(torch.from_numpy(w), torch.from_numpy(x), prng.key(0),
                    cfg)
-    assert tops.launch_counts() == {"noisy_read": 0, "managed_read": 0}
+    assert tops.launch_counts() == {
+        "noisy_read": 0, "managed_read": 0, "managed_read_conv": 0,
+        "pulse_counts": 0, "bwd_update": 0, "bwd_update_conv": 0}
 
 
 # ---------------------------------------------------------------------------
