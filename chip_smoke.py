@@ -6,10 +6,12 @@ Phases, each of which makes the script exit non-zero when it fails:
 
   (a) build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
       per source, all started together);
-  (b) hold each kernel against its plain PyTorch version on the card at the
-      serving path's shapes (and transpose, #_d = 13 and row-offset
-      variants): max |diff| against the stated tolerance, equal saturation
-      flags;
+  (b) hold the read kernels against their plain PyTorch versions on the
+      card at deepseek_7b's read shapes (and transpose, #_d = 13 and
+      row-offset variants) and the managed read at qwen3_14b's (prefill B
+      2000 and decode B 2, contractions in 2 and 5 segments, the 151936-row
+      unembed; NM off and on): max |diff| against the stated tolerance,
+      equal saturation flags;
   (c) serve the full-size deepseek_7b (30 layers, d 4096, vocab 102400,
       random weights from a seed) through ``repro_torch.launch.serve`` under
       two-phase bound management, launch counters read around the run;
@@ -32,9 +34,28 @@ Phases, each of which makes the script exit non-zero when it fails:
       BM and the fused update: final test error below 0.4;
   (r2) one FUSED training step on the card against the plain CPU step on
       the same parameters, images and key: logits, x_bar, new weights;
+  (b8) hold the flash-attention kernel against its plain version on the
+      card: the JAX package's five flash cases, qwen3's prefill shape (B 2,
+      S 1000, 40 heads over 8 kv heads, D 128) and a window case with rows
+      that see no key, each in float32 and bfloat16;
+  (f5) hold the fused pulse-update kernel against its plain version at the
+      JAX package's PULSE_CASES and LeNet's K2 with 13 devices per weight
+      (ctoc 0: within an ulp; ctoc 0.3: rtol 1e-5, atol 1e-6), every output
+      within +-bound, and drive its one entry (``ops.pulse_update_fused``)
+      through 20 update cycles with launch counters read around them;
+  (s) serve the full-size qwen3_14b (40 layers, d 5120, vocab 151936,
+      random weights from a seed) with the flash kernel under two-phase
+      bound management: batch 2, prompt 1000, 16 new tokens; launches per
+      kind, no plain-version call, tok/s, one prefill's wall and device time
+      and the flash kernel's share, one decode step's; then one digital
+      (bfloat16) prefill;
+  (r3) the qwen3 smoke model on the card against the CPU with the flash
+      kernel off and on: equal greedy tokens, logits within 1e-4;
   (e) each kernel's time against its bound, its plain version and one
       PyTorch call on the same shapes (yardstick only): ``torch.matmul``
-      for the reads and the count products, ``F.conv2d`` for the conv read.
+      for the reads and the count products, ``F.conv2d`` for the conv read,
+      ``F.scaled_dot_product_attention`` for the flash kernel, two
+      ``torch.matmul`` and the elementwise finalize for the fused update.
 
 The line before the card line is the kernels' JSON summary; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
@@ -43,7 +64,6 @@ is ``{"ok": true, "device": {...}}``.  Details go to
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
 import subprocess
@@ -57,6 +77,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12         # H100 SXM int8 tensor cores, dense
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 SIGMA, ALPHA = 0.06, 12.0        # lm_managed read noise / integrator bound
 POLICY_2P = "lm_managed:use_pallas=true:bm_mode=two_phase"
 POLICY_IT = "lm_managed:use_pallas=true"
@@ -87,6 +108,30 @@ PER_STEP = {
               "bwd_update_conv": 2},
 }
 
+# qwen3_14b serving with the flash-attention prefill (slice 3)
+QWEN_BATCH, QWEN_PROMPT, QWEN_GEN = 2, 1000, 16
+# (case, B, Sq, Sk, H, Hkv, D, causal, window, block_k): the JAX package's
+# five flash cases (tests/test_flash_attention.py), qwen3's prefill, and a
+# causal window past the keys' end (rows with no valid key)
+FLASH_CASES = [
+    ("causal 128", 2, 128, 128, 2, 2, 64, True, 0, 64),
+    ("causal 200 non-aligned", 1, 200, 200, 3, 3, 32, True, 0, 64),
+    ("bidirectional 128", 2, 128, 128, 2, 2, 64, False, 0, 64),
+    ("window 96", 1, 256, 256, 2, 2, 64, True, 96, 64),
+    ("cross 64/256", 1, 64, 256, 2, 2, 64, False, 0, 64),
+    ("qwen3 prefill", QWEN_BATCH, QWEN_PROMPT, QWEN_PROMPT, 40, 8, 128, True,
+     0, 128),
+    ("window 40, 300/100", 1, 300, 100, 2, 2, 64, True, 40, 128),
+]
+# (case, m, n, batch, bl, ctoc): the JAX package's PULSE_CASES
+# (tests/test_kernels.py) and LeNet's K2 with 13 devices per weight
+PULSE_CASES = [("16x26", 16, 26, 8, 10, 0.3), ("32x401", 32, 401, 16, 1, 0.3),
+               ("128x513", 128, 513, 4, 10, 0.0),
+               ("130x260", 130, 260, 64, 2, 0.3),
+               ("10x129", 10, 129, 1, 40, 0.3),
+               ("K2 #_d=13", 416, 401, 512, 1, 0.3)]
+PULSE_ENTRY_CYCLES = 20
+
 # name -> its source, the TPU kernel it replaces, its launch kind, the run
 # whose launches the summary reports and the timed shape it reports
 KERNELS = {
@@ -109,6 +154,11 @@ KERNELS = {
                          replaces="src/repro/kernels/pulse_update.py:112",
                          kind="pulse_counts", run="train_separate",
                          shape="K1 BL=1"),
+    "pulse_update": dict(route="cuda",
+                         source="src/repro_torch/csrc/pulse_update.cu",
+                         replaces="src/repro/kernels/pulse_update.py:166",
+                         kind="pulse_update", run="pulse_update_entry",
+                         shape="K2 #_d=13"),
     "bwd_update_mvm": dict(route="cuda",
                            source="src/repro_torch/csrc/bwd_update_mvm.cu",
                            replaces="src/repro/kernels/bwd_update_mvm.py:222",
@@ -118,6 +168,11 @@ KERNELS = {
                             replaces="src/repro/kernels/bwd_update_mvm.py:473",
                             kind="bwd_update_conv", run="train_fused",
                             shape="K1"),
+    "flash_attention": dict(route="cuda",
+                            source="src/repro_torch/csrc/flash_attention.cu",
+                            replaces="src/repro/kernels/flash_attention.py:83",
+                            kind="flash_attention", run="serve_qwen3",
+                            shape="qwen3 prefill float32"),
 }
 
 
@@ -159,20 +214,29 @@ def build_kernels():
 def _inputs(b, rows, cols, transpose, seed):
     """Weights ~ N(0, 1/K) and input rows at scales 1, 8 and 300, so some
     rows never saturate, some saturate on the first read only and some on
-    both two-phase reads — every flag far from the bound."""
+    both two-phase reads — every flag far from the bound.  Two rows take
+    scales 8 and 300: one saturates on one read, one on both."""
     import torch
     g = torch.Generator(device=DEV).manual_seed(seed)
     k = rows if transpose else cols
     w = torch.randn(rows, cols, generator=g, device=DEV) * k ** -0.5
     x = torch.randn(b, k, generator=g, device=DEV)
-    scales = torch.tensor([1.0, 8.0, 300.0], device=DEV)
-    x = x * scales[torch.arange(b, device=DEV) % 3][:, None]
+    scales = torch.tensor([1.0, 8.0, 300.0] if b > 2 else [8.0, 300.0],
+                          device=DEV)
+    x = x * scales[torch.arange(b, device=DEV) % len(scales)][:, None]
     return w.contiguous(), x.contiguous()
 
 
 def _cases():
-    # name, B, rows, cols, n_seg, transpose, d_avg, row_offset, total_rows
-    return [
+    """(name, B, rows, cols, n_seg, transpose, d_avg, row_offset, total_rows,
+    kernels, NM settings): deepseek_7b's reads (both kernels, NM on every
+    other case), then qwen3_14b's at the shapes its serving path gives the
+    managed read — the prefill's B = 2 x 1000 (a partial 64-row tile), the
+    decode's B = 2, contractions of 5120 and 17408 split over 4096-column
+    arrays (n_seg 2 and 5) — each with NM off (rows saturate on one read
+    and on both) and on."""
+    both = ("noisy_mvm", "managed_mvm")
+    ds = [
         ("q 4096x4096 B=4", 4, 4096, 4096, 1, False, 1, 0, None),
         ("q 4096x4096 B=128", 128, 4096, 4096, 1, False, 1, 0, None),
         ("wi 11008x4096 B=4", 4, 11008, 4096, 1, False, 1, 0, None),
@@ -187,6 +251,19 @@ def _cases():
         ("row_offset 4096x4096 B=7 @1000/2048", 7, 4096, 4096, 1, False, 1,
          1000, 2048),
     ]
+    cases = [c + (both if c[6] == 1 else both[1:], (bool(i % 2),))
+             for i, c in enumerate(ds)]
+    pre, dec = QWEN_BATCH * QWEN_PROMPT, QWEN_BATCH
+    for name, r, c, n_seg, bs in (
+            ("qwen3 q/o 5120x5120", 5120, 5120, 2, (pre, dec)),
+            ("qwen3 k/v 1024x5120", 1024, 5120, 2, (pre, dec)),
+            ("qwen3 wg/wi 17408x5120", 17408, 5120, 2, (pre,)),
+            ("qwen3 wo 5120x17408", 5120, 17408, 5, (pre, dec)),
+            ("qwen3 unembed 151936x5120", 151936, 5120, 2, (dec,))):
+        for b in bs:
+            cases.append((f"{name} B={b} n_seg={n_seg}", b, r, c, n_seg,
+                          False, 1, 0, None, both[1:], (False, True)))
+    return cases
 
 
 def kernels_vs_plain(results):
@@ -199,23 +276,22 @@ def kernels_vs_plain(results):
     print(f"[check] torch.backends.cuda.matmul.allow_tf32 = "
           f"{torch.backends.cuda.matmul.allow_tf32}")
     ok = True
-    for i, (name, b, r, c, n_seg, tr, d, off, tot) in enumerate(_cases()):
+    for i, (name, b, r, c, n_seg, tr, d, off, tot, kernels,
+            nms) in enumerate(_cases()):
         w, x = _inputs(b, r, c, tr, seed=100 + i)
         kw = dict(sigma=SIGMA, alpha=ALPHA, n_seg=n_seg, transpose=tr,
                   row_offset=off, total_rows=tot)
         # largest accumulated sum_k |x_k w_k|: fp32 reassociation over K
-        # terms moves a dot product by ~sqrt(K) * 2^-24 of it (< 7e-6 at
-        # K = 11008), so 1e-5 of it bounds the kernel-vs-cuBLAS difference
+        # terms moves a dot product by ~sqrt(K) * 2^-24 of it (< 8e-6 at
+        # K = 17408), so 1e-5 of it bounds the kernel-vs-cuBLAS difference
         mag = float((x.abs() @ (w.abs() if tr else w.abs().T)).max())
-        for kname in ("noisy_mvm", "managed_mvm"):
-            if kname == "noisy_mvm" and d > 1:
-                continue
+        for kname, nm_on in ((k, n) for k in kernels for n in nms):
             if kname == "noisy_mvm":
                 y, s = kn.noisy_mvm(w, x, 0x1234ABCD, **kw)
                 yp, sp = kn.noisy_mvm_plain(w, x, 0x1234ABCD, **kw)
             else:
                 nm = torch.amax(x.abs(), dim=1, keepdim=True) \
-                    if i % 2 else torch.ones(b, 1, device=DEV)
+                    if nm_on else torch.ones(b, 1, device=DEV)
                 mkw = dict(kw, two_phase=True, retry_scale=16.0, d_avg=d)
                 y, s = km.managed_mvm(w, x, nm, (11, 2 ** 32 - 5), **mkw)
                 yp, sp = km.managed_mvm_plain(w, x, nm, (11, 2 ** 32 - 5),
@@ -227,12 +303,15 @@ def kernels_vs_plain(results):
             good = (err <= tol and agree == b and bool(torch.isfinite(y).all())
                     and y.shape == yp.shape)
             ok &= good
-            print(f"[check] {kname:<11} {name:<38} max|diff|={err:.3e} "
+            case = name + (" NM" if kname == "managed_mvm" and nm_on else "")
+            print(f"[check] {kname:<11} {case:<38} max|diff|={err:.3e} "
                   f"tol={tol:.3e} sat agree {agree}/{b} "
                   f"(set: {int(sp.sum())}) {'ok' if good else 'FAIL'}")
             results.setdefault("checks", []).append(dict(
-                kernel=kname, case=name, max_abs_err=err, tol=tol,
+                kernel=kname, case=case, max_abs_err=err, tol=tol,
                 sat_agree=agree, rows=b, sat_set=int(sp.sum()), ok=good))
+            del y, s, yp, sp
+        del w, x
     check(ok, "a kernel disagrees with its plain version")
 
 
@@ -332,6 +411,14 @@ def _profile_step(step, what):
     step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
+    return _profile_report(_device_rows(step), wall, what)
+
+
+def _device_rows(step):
+    """(kernel, calls, device ms) of each CUDA kernel of one profiled call
+    of ``step``, longest first; empty when the profiler records no device
+    time."""
+    import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -347,10 +434,14 @@ def _profile_step(step, what):
         if dev > 0 and on_device and not getattr(ev, "is_user_annotation",
                                                  False):
             rows.append((ev.key, ev.count, dev / 1e3))
+    rows.sort(key=lambda r: -r[2])
+    return rows
+
+
+def _profile_report(rows, wall, what):
     if not rows:
         print("[profile] torch.profiler recorded no device time")
         return dict(wall_ms=wall, device_busy_ms=None, top=[])
-    rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
     print(f"[profile] {what}: wall {wall:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.2f}")
@@ -428,8 +519,11 @@ def _event_ms(fn, iters=20):
 
 def _device_ms(fn, names, iters=10):
     """Device time per call of the CUDA kernels whose names contain one of
-    ``names`` (profiler ranges are not kernels), from torch.profiler (None
-    without device time)."""
+    ``names`` (profiler ranges are not kernels), from torch.profiler, with
+    the kernel records it kept and the launches made: ``(ms, kept,
+    made)``, ms None without device time.  The profiler can drop records
+    (7 of 10 launches of one kernel in one run), so each kernel's time is
+    its mean over the records kept, times its launches per call."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -438,11 +532,31 @@ def _device_ms(fn, names, iters=10):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    tot = 0.0
+    tot, kept, made = 0.0, 0, 0
     for ev in prof.key_averages():
-        if "kernel" in ev.key and any(n in ev.key for n in names):
-            tot += (getattr(ev, "self_device_time_total", 0) or 0) / 1e3
-    return tot / iters if tot > 0 else None
+        dev = (getattr(ev, "self_device_time_total", 0) or 0) / 1e3
+        if dev > 0 and "kernel" in ev.key and any(n in ev.key for n in names):
+            per_call = max(1, round(ev.count / iters))
+            tot += dev / ev.count * per_call
+            kept += ev.count
+            made += per_call * iters
+    return (tot if tot > 0 else None), kept, made
+
+
+def _kernel_time(fk, names):
+    """A wrapper's time per call: the profiler's device time of its
+    kernels, and beside it CUDA events around 20 back-to-back calls (the
+    kernels plus the wrapper's own allocations and launch gaps)."""
+    dev_ms, kept, made = _device_ms(fk, names)
+    ev_ms = _event_ms(fk)
+    return dict(ms=dev_ms if dev_ms is not None else ev_ms,
+                ms_source="profiler" if dev_ms is not None else "events",
+                profiler_records=f"{kept}/{made}", event_ms=ev_ms)
+
+
+def _time_text(row):
+    return (f"kernel {row['ms']:.4f} ms ({row['ms_source']}, records "
+            f"{row['profiler_records']}; events {row['event_ms']:.4f})")
 
 
 def kernel_times(results):
@@ -475,19 +589,14 @@ def kernel_times(results):
                 byts = 4 * (r * c + b * c) + out_b + (
                     4 * b if kname == "managed_mvm" else 0)
                 bound = max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
-                dev_ms = _device_ms(fk, names)
                 row = dict(kernel=kname, shape=name, batch=b,
-                           ms=dev_ms if dev_ms is not None else _event_ms(fk),
-                           ms_source="profiler" if dev_ms is not None
-                           else "events",
-                           event_ms=_event_ms(fk), plain_ms=_event_ms(fp),
+                           **_kernel_time(fk, names), plain_ms=_event_ms(fp),
                            library_ms=lib_ms, bound_ms=bound * 1e3,
                            bound_by="bytes" if byts / HBM_BYTES_PER_S
                            >= flops / FP32_FLOPS_PER_S else "operations")
                 rows.append(row)
                 print(f"[time] {kname:<11} {name:<22} B={b:<4} "
-                      f"kernel {row['ms']:.4f} ms ({row['ms_source']}; "
-                      f"events {row['event_ms']:.4f}) bound "
+                      f"{_time_text(row)} bound "
                       f"{row['bound_ms']:.4f} ms ({row['bound_by']}) plain "
                       f"{row['plain_ms']:.4f} ms matmul {lib_ms:.4f} ms")
             del w, x
@@ -728,10 +837,10 @@ class _PlainCalls:
 
     def __init__(self):
         from repro_torch.kernels import (bwd_update_mvm, conv_mvm,
-                                         managed_mvm, noisy_mvm,
-                                         pulse_update)
+                                         flash_attention, managed_mvm,
+                                         noisy_mvm, pulse_update)
         self.mods = (noisy_mvm, managed_mvm, conv_mvm, pulse_update,
-                     bwd_update_mvm)
+                     bwd_update_mvm, flash_attention)
         self.calls = 0
         self.saved = []
 
@@ -912,33 +1021,385 @@ def step_reference(results):
 
 
 # ---------------------------------------------------------------------------
+# (b8) flash attention against its plain version
+# ---------------------------------------------------------------------------
+
+def _qkv(g, b, sq, sk, h, hkv, d, dtype):
+    import torch
+    mk = lambda s, nh: (torch.randn(b, s, nh, d, generator=g, device=DEV)
+                        * 0.5).to(dtype)
+    return mk(sq, h), mk(sk, hkv), mk(sk, hkv)
+
+
+def flash_vs_plain(results):
+    """float32: within rtol = atol = 2e-5 (the JAX package's own flash test;
+    f32 reassociation of the score and P V sums).  bfloat16: P rounds to
+    bf16 at the same block's running max on both sides, so a score an f32
+    ulp apart can flip one P entry's rounding (2^-8 of it) and the output
+    rounds to bf16 (2^-9 of |out| each side): within 2^-7 of each output's
+    sum_k a_k |v_k| (the float32 attention of |v|)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    ok = True
+    for i, (case, b, sq, sk, h, hkv, d, causal, win, bk) in enumerate(
+            FLASH_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=DEV).manual_seed(500 + i)
+            q, k, v = _qkv(g, b, sq, sk, h, hkv, d, dtype)
+            kw = dict(causal=causal, window=win, block_k=bk)
+            y = fa.flash_attention(q, k, v, **kw)
+            yp = fa.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            y, yp = y.float(), yp.float()
+            if dtype == torch.float32:
+                tol = 2e-5 + 2e-5 * yp.abs()
+            else:
+                tol = 2.0 ** -7 * fa.flash_attention_plain(
+                    q.float(), k.float(), v.float().abs(), **kw)
+            diff = (y - yp).abs()
+            worst = float((diff / tol).max())
+            good = (worst <= 1.0 and y.shape == yp.shape
+                    and bool(torch.isfinite(y).all()))
+            ok &= good
+            name = f"{case} {str(dtype)[6:]}"
+            print(f"[check] {'flash_attention':<15} {name:<34} max|diff|="
+                  f"{float(diff.max()):.3e} worst |diff|/tol={worst:.3f} "
+                  f"{'ok' if good else 'FAIL'}")
+            results.setdefault("checks", []).append(dict(
+                kernel="flash_attention", case=name,
+                max_abs_err=float(diff.max()), worst_ratio=worst,
+                tol="rtol=atol=2e-5" if dtype == torch.float32
+                else "2^-7 sum|a v|", ok=good))
+    check(ok, "the flash-attention kernel disagrees with its plain version")
+
+
+# ---------------------------------------------------------------------------
+# (f5) the fused pulse update against its plain version, and its entry
+# ---------------------------------------------------------------------------
+
+def _pulse_case(m, n, b, bl, ctoc, seed):
+    """Device maps, weights and signed streams of an update cycle sampled as
+    ``core/update.py`` samples them (drivers N(0, 1) x 0.3 and 0.1, gain
+    1)."""
+    import torch
+    from repro_torch.core import device, update
+    from repro_torch.utils import prng
+    cfg = device.RPUConfig(bl=bl, dw_min_ctoc=ctoc, use_pallas=True)
+    maps = device.sample_device_maps(prng.key(seed), m, n, cfg, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    w = (torch.randn(m, n, generator=g, device=DEV) * 0.1).contiguous()
+    x = torch.randn(b, n, generator=g, device=DEV) * 0.3
+    d = torch.randn(b, m, generator=g, device=DEV) * 0.1
+    one = torch.tensor(1.0, device=DEV)
+    k_a, k_b, k_c = prng.split(prng.key(seed + 1), 3)
+    cols = update.sample_signed_streams(k_a, x, one, bl)
+    rows = update.sample_signed_streams(k_b, d, one, bl)
+    return cfg, maps, w, rows, cols, k_c
+
+
+def pulse_update_vs_plain(results):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pulse_update as kp
+    from repro_torch.utils import fastrng
+
+    ok = True
+    for i, (case, m, n, b, bl, ctoc) in enumerate(PULSE_CASES):
+        cfg, maps, w, rows, cols, key = _pulse_case(m, n, b, bl, ctoc,
+                                                    600 + i)
+        got = ops.pulse_update_fused(w, maps, rows, cols, key, cfg)
+        want = kp.pulse_update_plain(
+            w, maps.dw_up, maps.dw_dn, maps.bound, rows.reshape(-1, m),
+            cols.reshape(-1, n), fastrng.key_to_seed(key), ctoc)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        if ctoc == 0.0:
+            tol = torch.finfo(torch.float32).eps * torch.maximum(
+                want.abs(), torch.full_like(want, 2.0 ** -126))
+            rule = "1 ulp"
+        else:
+            tol = 1e-6 + 1e-5 * want.abs()
+            rule = "rtol 1e-5, atol 1e-6"
+        inside = bool((got.abs() <= maps.bound).all())
+        clipped = int((got.abs() == maps.bound).sum())
+        good = (bool((diff <= tol).all()) and inside
+                and bool(torch.isfinite(got).all()))
+        ok &= good
+        print(f"[check] {'pulse_update':<15} {case + f' T={b * bl}':<34} "
+              f"max|diff|={float(diff.max()):.3e} ({rule}), within +-bound: "
+              f"{inside} ({clipped} at it) {'ok' if good else 'FAIL'}")
+        results.setdefault("checks", []).append(dict(
+            kernel="pulse_update", case=case, max_abs_err=float(diff.max()),
+            tol=rule, within_bound=inside, ok=good))
+    check(ok, "the fused pulse-update kernel disagrees with its plain "
+          "version")
+
+
+def pulse_update_entry(results):
+    """The fused update's one entry, ``ops.pulse_update_fused``, driven
+    through PULSE_ENTRY_CYCLES update cycles of LeNet's K2 tile with 13
+    devices per weight: streams sampled by ``core/update.py`` each cycle
+    from the cycle's keys, launch counters read around the cycles."""
+    import torch
+    from repro_torch.core import update
+    from repro_torch.kernels import ops
+    from repro_torch.utils import prng
+
+    case, m, n, b, bl, ctoc = PULSE_CASES[-1]
+    cfg, maps, w, _, _, _ = _pulse_case(m, n, b, bl, ctoc, 650)
+    g = torch.Generator(device=DEV).manual_seed(651)
+    x = torch.randn(b, n, generator=g, device=DEV) * 0.3
+    d = torch.randn(b, m, generator=g, device=DEV) * 0.1
+    one = torch.tensor(1.0, device=DEV)
+    w0 = w.clone()
+    torch.cuda.synchronize()
+    with _PlainCalls() as plain:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for c in range(PULSE_ENTRY_CYCLES):
+            k_a, k_b, k_c = prng.split(prng.fold_in(prng.key(652), c), 3)
+            cols = update.sample_signed_streams(k_a, x, one, bl)
+            rows = update.sample_signed_streams(k_b, d, one, bl)
+            w = ops.pulse_update_fused(w, maps, rows, cols, k_c, cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    got = {k: v for k, v in counts.items() if v}
+    moved = float((w - w0).abs().mean())
+    print(f"[pulse_update_entry] {case} T={b * bl}: {PULSE_ENTRY_CYCLES} "
+          f"cycles in {dt * 1e3:.1f} ms, launches {got}, plain-version "
+          f"calls {plain.calls}, mean |w - w0| {moved:.3e}")
+    results["pulse_update_entry"] = dict(case=case, cycles=PULSE_ENTRY_CYCLES,
+                                         seconds=dt, launches=counts,
+                                         plain_calls=plain.calls,
+                                         mean_abs_change=moved)
+    check(got == {"pulse_update": PULSE_ENTRY_CYCLES},
+          f"expected {PULSE_ENTRY_CYCLES} pulse_update launches and nothing "
+          f"else, got {got}")
+    check(plain.calls == 0, f"{plain.calls} plain-version calls on the card")
+    check(bool(torch.isfinite(w).all()) and bool((w.abs() <= maps.bound)
+                                                 .all()) and moved > 0,
+          "weights not finite, outside the device bounds or not updated")
+
+
+# ---------------------------------------------------------------------------
+# (s) full-size qwen3_14b serving with the flash-attention prefill
+# ---------------------------------------------------------------------------
+
+def _free():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_qwen3(results):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as S
+    from repro_torch.serve import engine
+
+    cfg = S.build_cfg("qwen3_14b", False, POLICY_2P)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.qk_norm)
+          == (40, 5120, 40, 8, 128, 17408, 151936, True),
+          "not the published qwen3_14b")
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, akey = S.init(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    cfg = dataclasses.replace(cfg, use_flash_kernel=True)
+    blocks = sum(t.numel() for t in _tensors(params["layers"]))
+    unembed = params["unembed"].w.numel()
+    embed = params["embed"]["table"]
+    param_bytes = torch.cuda.memory_allocated() - mem0
+    reckoned = 4 * (blocks + unembed) + embed.numel() * embed.element_size()
+    print(f"[serve_qwen3] init in {t_init:.1f}s: {blocks / 1e9:.2f} B block "
+          f"and {unembed / 1e9:.2f} B unembed parameters as f32 tiles, "
+          f"embedding {embed.numel() / 1e9:.2f} B {embed.dtype}; reckoned "
+          f"{reckoned / 1e9:.2f} GB, allocated {param_bytes / 1e9:.2f} GB")
+
+    prompts = S.make_prompts(cfg, QWEN_BATCH, QWEN_PROMPT, 0, DEV)
+    max_seq = QWEN_PROMPT + QWEN_GEN
+    with torch.no_grad():
+        engine.greedy_generate(params, prompts, cfg, n_steps=2,
+                               max_seq=max_seq, akey=akey)     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _PlainCalls() as plain:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            toks, cache = engine.greedy_generate(
+                params, prompts, cfg, n_steps=QWEN_GEN, max_seq=max_seq,
+                akey=akey)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    kv_bytes = sum(cache[k].numel() * cache[k].element_size()
+                   for k in ("k", "v"))
+    toks = toks.cpu()
+    tok_s = QWEN_BATCH * QWEN_GEN / dt
+    got = {k: v for k, v in counts.items() if v}
+    # one flash launch per layer in the prefill; 7 reads per layer and the
+    # unembed's per forward pass (prefill + 15 decode steps)
+    want = {"flash_attention": cfg.n_layers,
+            "managed_read": (7 * cfg.n_layers + 1) * QWEN_GEN}
+    print(f"[serve_qwen3] tokens {tuple(toks.shape)}, launches {got}, "
+          f"plain-version calls {plain.calls}, {tok_s:.2f} tok/s after "
+          f"warm-up ({dt:.2f}s for prefill + {QWEN_GEN - 1} decode steps); "
+          f"KV cache {kv_bytes / 1e9:.3f} GB, peak allocated "
+          f"{peak / 1e9:.2f} GB")
+    check(got == want, f"launches {got}, expected {want}")
+    check(plain.calls == 0, f"{plain.calls} plain-version calls on the card")
+    check(tuple(toks.shape) == (QWEN_BATCH, QWEN_GEN), "wrong token shape")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "token out of range")
+    del cache
+
+    # one prefill: wall time (host clock) and its logits, then device time
+    # per kernel from a profiled prefill
+    prefill = lambda: engine.prefill(params, prompts, cfg, max_seq=max_seq,
+                                     akey=akey)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, cache = prefill()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        check(tuple(logits.shape) == (QWEN_BATCH, 1, cfg.vocab),
+              "logit shape")
+        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        decode = _profile_step(
+            lambda: engine.serve_step(params, tok, cache, cfg,
+                                      akey=engine.decode_step_key(akey, 0)),
+            "one qwen3 decode step (B 2)")
+        del logits, cache
+        rows = _device_rows(prefill)
+    prof = _profile_report(rows, wall, "one qwen3 prefill (B 2, S 1000)")
+    # the profiler may drop kernel records: the flash time is its mean
+    # over the records kept times the prefill's launches (one per layer)
+    flash = [(n, ms) for key, n, ms in rows if "flash" in key]
+    kept = sum(n for n, _ in flash)
+    flash_ms = (sum(ms for _, ms in flash) / kept * cfg.n_layers
+                if kept else 0.0)
+    share = flash_ms / prof["device_busy_ms"] if rows else None
+    if rows:
+        print(f"[serve_qwen3] flash kernel: {flash_ms:.2f} ms "
+              f"({kept}/{cfg.n_layers} records) of the prefill's "
+              f"{prof['device_busy_ms']:.1f} ms device time "
+              f"(share {share:.4f})")
+    results["serve_qwen3"] = dict(
+        policy=POLICY_2P, batch=QWEN_BATCH, prompt=QWEN_PROMPT,
+        gen=QWEN_GEN, tokens_shape=list(toks.shape), launches=counts,
+        plain_calls=plain.calls, tok_per_s=tok_s, seconds=dt, init_s=t_init,
+        params_reckoned_gb=reckoned / 1e9, params_allocated_gb=param_bytes
+        / 1e9, kv_cache_gb=kv_bytes / 1e9, peak_allocated_gb=peak / 1e9,
+        prefill_profile=prof, flash_ms=flash_ms, flash_share=share,
+        decode_profile=decode)
+    del params, prefill
+    _free()
+
+    # the digital model (bf16 activations): one prefill through the kernel
+    cfg_d = dataclasses.replace(S.build_cfg("qwen3_14b", False, None),
+                                use_flash_kernel=True)
+    params, _ = S.init(cfg_d, seed=0, device=DEV)
+    with torch.no_grad(), _PlainCalls() as plain:
+        engine.prefill(params, prompts, cfg_d, max_seq=max_seq)  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _ = engine.prefill(params, prompts, cfg_d, max_seq=max_seq)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+    got = {k: v for k, v in counts.items() if v}
+    print(f"[serve_qwen3_bf16] one digital prefill ({logits.dtype}): "
+          f"{wall:.1f} ms wall, launches {got}, plain-version calls "
+          f"{plain.calls}")
+    check(got == {"flash_attention": cfg_d.n_layers},
+          f"digital prefill launches {got}")
+    check(plain.calls == 0, f"{plain.calls} plain-version calls on the card")
+    check(bool(torch.isfinite(logits).all()), "non-finite bf16 logits")
+    results["serve_qwen3_bf16"] = dict(prefill_wall_ms=wall, launches=counts,
+                                       logits_dtype=str(logits.dtype))
+    del params, logits
+    _free()
+
+
+# ---------------------------------------------------------------------------
+# (r3) the qwen3 smoke model: the card against the CPU, flash off and on
+# ---------------------------------------------------------------------------
+
+def smoke_reference_qwen3(results):
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer
+    from repro_torch.serve import engine
+    from repro_torch.utils import prng
+
+    cfg0 = dataclasses.replace(S.build_cfg("qwen3_14b", True, POLICY_2P),
+                               act_dtype=torch.float32)
+    p_cpu = transformer.init_lm(0, cfg0, device="cpu")
+    p_gpu = _to(p_cpu, DEV)
+    # 150 tokens: two softmax blocks of 128, the second padded
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg0.vocab, (2, 150)))
+    tokens = {}
+    for flash in (False, True):
+        cfg = dataclasses.replace(cfg0, use_flash_kernel=flash)
+        outs = {}
+        for dev, p in (("cpu", p_cpu), (DEV, p_gpu)):
+            with torch.no_grad():
+                lg, _ = engine.prefill(p, toks.to(dev), cfg, max_seq=160,
+                                       akey=prng.key(5))
+                gen, _ = engine.greedy_generate(p, toks.to(dev), cfg,
+                                                n_steps=6, max_seq=160,
+                                                akey=prng.key(5))
+            outs[dev] = (lg.cpu(), gen.cpu())
+        err = float((outs["cpu"][0] - outs[DEV][0]).abs().max())
+        same = torch.equal(outs["cpu"][1], outs[DEV][1])
+        tokens[flash] = outs[DEV][1]
+        state = "on" if flash else "off"
+        print(f"[reference] qwen3 smoke, flash kernel {state}: logits "
+              f"max|diff| {err:.2e} (tol 1e-4), greedy tokens equal: {same}")
+        results.setdefault("reference_qwen3", []).append(
+            dict(flash=flash, logit_err=err, tokens_equal=same))
+        check(err <= 1e-4 and same, "card disagrees with the CPU reference")
+    same = torch.equal(tokens[False], tokens[True])
+    print(f"[reference] qwen3 smoke on the card: tokens with the flash kernel "
+          f"equal those without: {same}")
+    check(same, "the flash kernel changes the greedy tokens")
+
+
+# ---------------------------------------------------------------------------
 # (e) training kernels: times against bound, plain version and PyTorch
 # ---------------------------------------------------------------------------
 
-def _bound(byts, flops, count_ops):
-    """Least time in ms: the bytes over HBM's rate, or the read's fp32
-    multiply-adds plus the count products' operations, whichever is longer.
-    The count products multiply {0, +-1} streams, exact on the int8 tensor
-    cores, so they are charged at that rate."""
+def _bound(byts, flops, count_ops, flop_rate=FP32_FLOPS_PER_S):
+    """Least time in ms: the bytes over HBM's rate, or the multiply-adds
+    (at ``flop_rate``: fp32 for the reads) plus the count products'
+    operations, whichever is longer.  The count products multiply {0, +-1}
+    streams, exact on the int8 tensor cores, so they are charged at that
+    rate."""
     by_bytes = byts / HBM_BYTES_PER_S
-    by_ops = flops / FP32_FLOPS_PER_S + count_ops / INT8_OPS_PER_S
+    by_ops = flops / flop_rate + count_ops / INT8_OPS_PER_S
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
                                          else "operations")
 
 
 def _time_row(rows, kernel, shape, fk, fp, flib, names, byts, flops,
-              count_ops):
-    dev_ms = _device_ms(fk, names)
-    bound_ms, bound_by = _bound(byts, flops, count_ops)
-    row = dict(kernel=kernel, shape=shape, batch=LENET_BATCH,
-               ms=dev_ms if dev_ms is not None else _event_ms(fk),
-               ms_source="profiler" if dev_ms is not None else "events",
-               event_ms=_event_ms(fk), plain_ms=_event_ms(fp),
+              count_ops, flop_rate=FP32_FLOPS_PER_S, batch=LENET_BATCH):
+    bound_ms, bound_by = _bound(byts, flops, count_ops, flop_rate)
+    row = dict(kernel=kernel, shape=shape, batch=batch,
+               **_kernel_time(fk, names), plain_ms=_event_ms(fp),
                library_ms=_event_ms(flib), bound_ms=bound_ms,
                bound_by=bound_by)
     rows.append(row)
-    print(f"[time] {kernel:<15} {shape:<12} kernel {row['ms']:.4f} ms "
-          f"({row['ms_source']}; events {row['event_ms']:.4f}) bound "
+    print(f"[time] {kernel:<15} {shape:<12} {_time_text(row)} bound "
           f"{bound_ms:.5f} ms ({bound_by}) plain {row['plain_ms']:.4f} ms "
           f"library {row['library_ms']:.4f} ms")
 
@@ -1024,29 +1485,130 @@ def training_kernel_times(results):
                   4.0 * t * m * n)
 
 
+def slice3_kernel_times(results):
+    """Flash attention at qwen3's prefill shape (float32: the analog path;
+    bfloat16: the digital one) and the fused update at the f5 shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import pulse_update as kp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = results["times"]
+    case, b, sq, sk, h, hkv, d, causal, win, bk = FLASH_CASES[5]
+    # (q, k) pairs the causal mask keeps: the multiply-adds the work needs
+    pairs = sum(min(i + 1, sk) for i in range(sq))
+    for dtype, rate in ((torch.float32, FP32_FLOPS_PER_S),
+                        (torch.bfloat16, BF16_FLOPS_PER_S)):
+        g = torch.Generator(device=DEV).manual_seed(700)
+        q, k, v = _qkv(g, b, sq, sk, h, hkv, d, dtype)
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+        byts = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        _time_row(rows, "flash_attention", f"{case} {str(dtype)[6:]}",
+                  lambda: fa.flash_attention(q, k, v),
+                  lambda: fa.flash_attention_plain(q, k, v),
+                  lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True),
+                  ("flash",), byts, 4.0 * pairs * d * b * h, 0.0,
+                  flop_rate=rate, batch=b)
+        del q, k, v, qt, kt, vt
+    for case, m, n, bsz, bl, ctoc in PULSE_CASES:
+        cfg, maps, w, rws, cls, key = _pulse_case(m, n, bsz, bl, ctoc, 700)
+        t = bsz * bl
+        rws, cls = rws.reshape(t, m), cls.reshape(t, n)
+        up, dn, bound = maps.dw_up, maps.dw_dn, maps.bound
+        xi = torch.randn(m, n, device=DEV)
+
+        def library():
+            net = torch.matmul(rws.T, cls)
+            tot = torch.matmul(rws.abs().T, cls.abs())
+            cu, cd = 0.5 * (tot + net), 0.5 * (tot - net)
+            dw = cu * up - cd * dn + ctoc * torch.sqrt(
+                cu * up * up + cd * dn * dn) * xi
+            return torch.clamp(w + dw, -bound, bound)
+
+        _time_row(rows, "pulse_update", f"{case} T={t}",
+                  lambda: kp.pulse_update(w, up, dn, bound, rws, cls, 1,
+                                          ctoc=ctoc),
+                  lambda: kp.pulse_update_plain(w, up, dn, bound, rws, cls,
+                                                1, ctoc),
+                  library, ("pulse_update",),
+                  4 * (t * (m + n) + 5 * m * n), 0.0, 4.0 * t * m * n,
+                  batch=None)
+
+
 def summary_line(results):
     """One entry per kernel at the shape named in KERNELS (decode wg/wi
     11008x4096, B=4, for the read kernels; LeNet's K1, W3 or K1 BL=1 for the
-    training kernels), with the launches of the run named there."""
+    training kernels; K2 #_d=13 for the fused update; qwen3's float32
+    prefill for flash attention), with the launches of the run named
+    there; ``ms`` is the profiler's device time of the kernels, ``event_ms``
+    CUDA events around back-to-back calls of the wrapper."""
     kernels = []
     for kname, meta in KERNELS.items():
         t = next(r for r in results["times"] if r["kernel"] == kname
                  and r["shape"].startswith(meta["shape"])
-                 and r["batch"] in (BATCH, LENET_BATCH))
+                 and r["batch"] in (BATCH, LENET_BATCH, QWEN_BATCH, None))
         err = max(c["max_abs_err"] for c in results["checks"]
                   if c["kernel"] == kname)
         kernels.append(dict(
             name=kname, route=meta["route"], source=meta["source"],
             replaces=meta["replaces"],
             launches=results[meta["run"]]["launches"][meta["kind"]],
-            max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+            max_abs_err=err, ms=t["ms"], event_ms=t["event_ms"],
+            plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"]))
     return {"kernels": kernels}
 
 
+def serve_two_phase(results):
+    counts = serve_full(POLICY_2P, results, "serve_two_phase")
+    want = READS_PER_PASS * GEN
+    check(counts["managed_read"] == want and counts["noisy_read"] == 0,
+          f"expected {want} managed reads and no noisy read, got {counts}")
+
+
+def serve_iterative(results):
+    counts = serve_full(POLICY_IT, results, "serve_iterative")
+    want = READS_PER_PASS * GEN
+    check(counts["noisy_read"] >= want and counts["managed_read"] == 0,
+          f"expected >= {want} noisy reads and no managed read, "
+          f"got {counts}")
+
+
+def kernel_times_all(results):
+    kernel_times(results)
+    training_kernel_times(results)
+    slice3_kernel_times(results)
+
+
+# (key, title, function): every phase, in the order they run
+PHASES = [
+    ("a", "build", lambda results: results.update(
+        build_s=build_kernels())),
+    ("b", "kernels vs plain versions", kernels_vs_plain),
+    ("b8", "flash attention vs its plain version", flash_vs_plain),
+    ("f5", "fused pulse update vs its plain version, and its entry",
+     lambda results: (pulse_update_vs_plain(results),
+                      pulse_update_entry(results))),
+    ("c", "full-size serve, two-phase BM", serve_two_phase),
+    ("d", "full-size serve, iterative BM", serve_iterative),
+    ("s", "full-size qwen3_14b serve with the flash kernel", serve_qwen3),
+    ("r", "small-input reference (card vs CPU)", smoke_reference),
+    ("r3", "qwen3 smoke model, card vs CPU, flash off and on",
+     smoke_reference_qwen3),
+    ("f", "training kernels vs plain versions", training_kernels_vs_plain),
+    ("g", "LeNet training on the card", lenet_training),
+    ("h", "learning", lenet_learning),
+    ("r2", "one training step, card vs CPU", step_reference),
+    ("e", "kernel times", kernel_times_all),
+]
+
+
 def main():
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1063,33 +1625,13 @@ def main():
     print(f"[env] {results['device']} torch {torch.__version__} "
           f"cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    phase("a: build")
-    results["build_s"] = build_kernels()
-    phase("b: kernels vs plain versions")
-    kernels_vs_plain(results)
-    phase("c: full-size serve, two-phase BM")
-    counts = serve_full(POLICY_2P, results, "serve_two_phase")
-    want = READS_PER_PASS * GEN
-    check(counts["managed_read"] == want and counts["noisy_read"] == 0,
-          f"expected {want} managed reads and no noisy read, got {counts}")
-    phase("d: full-size serve, iterative BM")
-    counts = serve_full(POLICY_IT, results, "serve_iterative")
-    check(counts["noisy_read"] >= want and counts["managed_read"] == 0,
-          f"expected >= {want} noisy reads and no managed read, "
-          f"got {counts}")
-    phase("r: small-input reference (card vs CPU)")
-    smoke_reference(results)
-    phase("f: training kernels vs plain versions")
-    training_kernels_vs_plain(results)
-    phase("g: LeNet training on the card")
-    lenet_training(results)
-    phase("h: learning")
-    lenet_learning(results)
-    phase("r2: one training step, card vs CPU")
-    step_reference(results)
-    phase("e: kernel times")
-    kernel_times(results)
-    training_kernel_times(results)
+    phase_s = results.setdefault("phase_seconds", {})
+    for key, title, fn in PHASES:
+        phase(f"{key}: {title}")
+        t0 = time.perf_counter()
+        fn(results)
+        phase_s[key] = time.perf_counter() - t0
+        print(f"[phase {key}] {phase_s[key]:.1f}s", flush=True)
     results["seconds"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -3,8 +3,8 @@
 Each ``configs/<id>.py`` exports ``CONFIG`` (the published numbers) and
 ``smoke_config()`` (a reduced same-family config for CPU tests); the
 ``registry`` resolves ``--arch`` names.  Only the dense family is ported:
-MoE, SSM, hybrid and encoder-decoder stacks are not part of this package
-yet.
+MoE, SSM, hybrid and encoder-decoder stacks, QKV bias, sliding-window
+attention and the int8 KV cache are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -28,11 +28,15 @@ class ModelConfig:
     d_ff: int
     vocab: int
     d_head: Optional[int] = None          # default d_model // n_heads
+    qk_norm: bool = False                 # qwen3: RMSNorm of q and k heads
     rope_theta: float = 1e4
     norm_eps: float = 1e-5
     # numerics
     param_dtype: torch.dtype = torch.bfloat16
     act_dtype: torch.dtype = torch.bfloat16
+    use_flash_kernel: bool = False        # prefill attention through the
+                                          # flash-attention kernel instead
+                                          # of the chunked fallback
     # analog (RPU): dense projections matched by a rule are converted to
     # AnalogState tiles at init (repro_torch.analog.convert)
     analog_policy: Optional[AnalogPolicy] = None

@@ -1,7 +1,8 @@
 """--arch registry: resolves architecture ids to configs.
 
 Each ``configs/<id>.py`` exports ``CONFIG`` (published numbers) and
-``smoke_config()``.  Only deepseek_7b is ported so far.
+``smoke_config()``.  The dense models deepseek_7b and qwen3_14b are
+ported so far.
 """
 
 from __future__ import annotations
@@ -10,9 +11,9 @@ import dataclasses
 import importlib
 from typing import List
 
-ARCH_IDS: List[str] = ["deepseek_7b"]
+ARCH_IDS: List[str] = ["deepseek_7b", "qwen3_14b"]
 
-_ALIASES = {"deepseek-7b": "deepseek_7b"}
+_ALIASES = {"deepseek-7b": "deepseek_7b", "qwen3-14b": "qwen3_14b"}
 
 
 def canonical(name: str) -> str:

@@ -77,19 +77,32 @@ def coincidence_counts(streams_rows: Tensor, streams_cols: Tensor
                               streams_cols.reshape(-1, n))
 
 
+def counts_to_dw(count_up: Tensor, count_dn: Tensor, dw_up: Tensor,
+                 dw_dn: Tensor, seed: int, ctoc: float) -> Tensor:
+    """Physical ``DW`` from the counts under the maps ``dw_up``, ``dw_dn``,
+    plus cycle-to-cycle variation ``ctoc sqrt(up dw_up^2 + dn dw_dn^2) xi``
+    with ``xi`` the counter-hash normal of the u32 ``seed`` at the flat
+    index ``row * N + col`` — the fused update kernel's finalize."""
+    dw = count_up * dw_up - count_dn * dw_dn
+    if ctoc > 0.0:
+        e = torch.arange(dw.numel(), dtype=torch.int64,
+                         device=dw.device).reshape(dw.shape)
+        xi = fastrng.normal_at(fastrng.mix_int(int(seed)), e, dw.numel())
+        var = count_up * dw_up ** 2 + count_dn * dw_dn ** 2
+        dw = dw + ctoc * torch.sqrt(var) * xi
+    return dw
+
+
 def dw_from_counts(count_up: Tensor, count_dn: Tensor, maps: DeviceMaps,
                    k_c: prng.Key, cfg: RPUConfig) -> Tensor:
     """Physical ``DW`` from the counts: device maps plus cycle-to-cycle
     variation (one ``(M, N)`` counter-hash normal draw from ``k_c``)."""
-    dw = count_up * maps.dw_up - count_dn * maps.dw_dn
-    if cfg.dw_min_ctoc > 0.0:
-        if not cfg.fast_rng:
-            raise NotImplementedError(
-                "only the counter-hash ctoc noise (fast_rng=True) is ported")
-        xi = fastrng.normal(k_c, dw.shape, device=dw.device)
-        var = count_up * maps.dw_up ** 2 + count_dn * maps.dw_dn ** 2
-        dw = dw + cfg.dw_min_ctoc * torch.sqrt(var) * xi
-    return dw.to(cfg.dtype)
+    if cfg.dw_min_ctoc > 0.0 and not cfg.fast_rng:
+        raise NotImplementedError(
+            "only the counter-hash ctoc noise (fast_rng=True) is ported")
+    return counts_to_dw(count_up, count_dn, maps.dw_up, maps.dw_dn,
+                        fastrng.key_to_seed(k_c),
+                        cfg.dw_min_ctoc).to(cfg.dtype)
 
 
 def finalize_counts(w: Tensor, maps: DeviceMaps, count_up: Tensor,

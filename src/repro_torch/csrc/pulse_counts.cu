@@ -23,18 +23,6 @@
 
 namespace analog {
 
-struct MemStreams {
-  const float* rows;  // (T, M)
-  const float* cols;  // (T, N)
-  int M, N;
-  __device__ __forceinline__ int a(int t, int j) const {
-    return (int)__ldg(cols + (size_t)t * N + j);
-  }
-  __device__ __forceinline__ int b(int t, int i) const {
-    return (int)__ldg(rows + (size_t)t * M + i);
-  }
-};
-
 __global__ void __launch_bounds__(THREADS)
     pulse_counts_kernel(CountTile c, MemStreams src) {
   count_block(c, src, blockIdx.x);

@@ -12,12 +12,14 @@
 // the column drivers (entries 0, +1, -1),
 //     count_up[i, j] = #{t : B[t, i] * A[t, j] = +1}
 //     count_dn[i, j] = #{t : B[t, i] * A[t, j] = -1}
-// i.e. (|B|^T|A| +- B^T A) / 2.  Each block owns a CT x CT tile of devices
-// and a range of CPAIRS stream slots, stages CR slots of both streams in
-// shared memory as int8, counts in int32 registers (exact), and adds its
-// integer totals to the f32 outputs with atomics.  Integer-valued f32 sums
-// are exact below 2^24 in any order, so the result is bitwise the plain
-// two-matmul version whatever order the blocks run in.
+// i.e. (|B|^T|A| +- B^T A) / 2.  count_range counts a CT x CT tile of
+// devices over a range of stream slots: it stages CR slots of both streams
+// in shared memory as int8 and counts in int32 registers (exact).
+// count_block gives each block a tile and CPAIRS slots and adds its integer
+// totals to the f32 outputs with atomics.  Integer-valued f32 sums are exact
+// below 2^24 in any order, so the result is bitwise the plain two-matmul
+// version whatever order the blocks run in.  pulse_update.cu runs one block
+// per tile over all T and applies the update in the block.
 #pragma once
 
 #include "analog_read.cuh"
@@ -53,20 +55,32 @@ inline CountTile make_count_tile(int M, int N, int T, float* up, float* dn) {
   return CountTile{M, N, T, (M + CT - 1) / CT, (N + CT - 1) / CT, up, dn};
 }
 
-// Block bid of the count grid: (slot range, row tile, column tile).  SRC
-// gives the stream entries: src.a(t, j) of column j, src.b(t, i) of row i.
+// Streams read from memory: rows (T, M) and cols (T, N), f32 in {0, +-1}.
+struct MemStreams {
+  const float* rows;  // (T, M)
+  const float* cols;  // (T, N)
+  int M, N;
+  __device__ __forceinline__ int a(int t, int j) const {
+    return (int)__ldg(cols + (size_t)t * N + j);
+  }
+  __device__ __forceinline__ int b(int t, int i) const {
+    return (int)__ldg(rows + (size_t)t * M + i);
+  }
+};
+
+// Counts of the CT x CT device tile at (m0, n0) over stream slots [q0, q1):
+// thread t holds devices (m0 + t / 8, n0 + 4 (t % 8) + j), j < 4.  SRC gives
+// the stream entries: src.a(t, j) of column j, src.b(t, i) of row i.
 template <class SRC>
-__device__ __forceinline__ void count_block(const CountTile& c,
-                                            const SRC& src, int bid) {
+__device__ __forceinline__ void count_range(const CountTile& c,
+                                            const SRC& src, int m0, int n0,
+                                            int q0, int q1, int up[4],
+                                            int dn[4]) {
   __shared__ signed char sa[CR][CT];
   __shared__ signed char sb[CR][CT];
-  const int tiles = c.tiles_m * c.tiles_n;
-  const int split = bid / tiles, tile = bid - split * tiles;
-  const int m0 = (tile / c.tiles_n) * CT, n0 = (tile % c.tiles_n) * CT;
-  const int q0 = split * CPAIRS, q1 = min(c.T, q0 + CPAIRS);
   const int t = threadIdx.x;
   const int mm = t / (CT / 4), nn = (t % (CT / 4)) * 4;
-  int up[4] = {0, 0, 0, 0}, dn[4] = {0, 0, 0, 0};
+  for (int j = 0; j < 4; ++j) up[j] = dn[j] = 0;
   for (int qs = q0; qs < q1; qs += CR) {
     __syncthreads();  // previous round fully consumed
     for (int i = t; i < CR * CT; i += THREADS) {
@@ -92,11 +106,25 @@ __device__ __forceinline__ void count_block(const CountTile& c,
       }
     }
   }
-  const int m = m0 + mm;
+}
+
+// Block bid of the count grid: (slot range, row tile, column tile); its
+// counts are added to c.up / c.dn.
+template <class SRC>
+__device__ __forceinline__ void count_block(const CountTile& c,
+                                            const SRC& src, int bid) {
+  const int tiles = c.tiles_m * c.tiles_n;
+  const int split = bid / tiles, tile = bid - split * tiles;
+  const int m0 = (tile / c.tiles_n) * CT, n0 = (tile % c.tiles_n) * CT;
+  const int q0 = split * CPAIRS, q1 = min(c.T, q0 + CPAIRS);
+  int up[4], dn[4];
+  count_range(c, src, m0, n0, q0, q1, up, dn);
+  const int t = threadIdx.x;
+  const int m = m0 + t / (CT / 4), nb = n0 + (t % (CT / 4)) * 4;
   if (m >= c.M) return;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const int n = n0 + nn + j;
+    const int n = nb + j;
     if (n >= c.N) continue;
     const size_t i = (size_t)m * c.N + n;
     if (up[j]) atomicAdd(&c.up[i], (float)up[j]);

@@ -7,9 +7,10 @@ single read consumes ``key`` itself (the same seed twice).  Seeds are
 derived on the host and passed to the kernels by value.
 
 Every launch carries a stable kind name (``noisy_read``, ``managed_read``,
-``managed_read_conv``, ``pulse_counts``, ``bwd_update``,
-``bwd_update_conv``) that names its ``torch.profiler`` range;
-:func:`launch_counts` reads the kernel wrappers' launch counters per kind.
+``managed_read_conv``, ``pulse_counts``, ``pulse_update``, ``bwd_update``,
+``bwd_update_conv``, ``flash_attention``) that names its ``torch.profiler``
+range; :func:`launch_counts` reads the kernel wrappers' launch counters per
+kind.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.device import RPUConfig
+from repro_torch.core.device import DeviceMaps, RPUConfig
 from repro_torch.kernels import bwd_update_mvm as _bwd
 from repro_torch.kernels import conv_mvm as _conv
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import managed_mvm as _managed
 from repro_torch.kernels import noisy_mvm as _noisy
 from repro_torch.kernels import pulse_update as _pulse
@@ -34,8 +36,10 @@ _COUNTERS = {
     "managed_read": (_managed, "launches"),
     "managed_read_conv": (_conv, "launches"),
     "pulse_counts": (_pulse, "launches"),
+    "pulse_update": (_pulse, "update_launches"),
     "bwd_update": (_bwd, "launches"),
     "bwd_update_conv": (_bwd, "conv_launches"),
+    "flash_attention": (_flash, "launches"),
 }
 
 
@@ -235,3 +239,17 @@ def pulse_counts(streams_rows: Tensor, streams_cols: Tensor
     with torch.profiler.record_function("pulse_counts"):
         return _pulse.pulse_counts(streams_rows.reshape(-1, m).contiguous(),
                                    streams_cols.reshape(-1, n).contiguous())
+
+
+def pulse_update_fused(w: Tensor, maps: DeviceMaps, streams_rows: Tensor,
+                       streams_cols: Tensor, key: prng.Key,
+                       cfg: RPUConfig) -> Tensor:
+    """Kernel-backed update cycle in one launch; streams already sampled
+    ``(..., BL, n)``.  The ctoc noise consumes ``key_to_seed(key)``."""
+    m, n = w.shape
+    with torch.profiler.record_function("pulse_update"):
+        return _pulse.pulse_update(
+            w, maps.dw_up, maps.dw_dn, maps.bound,
+            streams_rows.reshape(-1, m).contiguous(),
+            streams_cols.reshape(-1, n).contiguous(),
+            fastrng.key_to_seed(key), ctoc=float(cfg.dw_min_ctoc))

@@ -1,5 +1,6 @@
-"""pulse_counts: the update cycle's coincidence counts of signed pulse
-streams, ``count_up, count_dn = (|B|^T |A| +- B^T A) / 2``.
+"""The update cycle's kernels on signed pulse streams: the coincidence
+counts ``count_up, count_dn = (|B|^T |A| +- B^T A) / 2`` alone, and the
+fused update (counts, device maps, cycle-to-cycle noise, bound clip).
 
 Replaces the TPU kernel ``pulse_counts_pallas`` (``src/repro/kernels/
 pulse_update.py:112``, ``pallas_call`` at :136) with the CUDA kernel
@@ -11,9 +12,17 @@ stream matrices; at LeNet's shapes, one launch.
 
 :func:`pulse_counts` launches it for CUDA tensors and runs
 :func:`pulse_counts_plain` only for CPU tensors.  ``launches`` counts kernel
-launches.  (The TPU package's fused ``pulse_update_pallas`` — counts, maps,
-ctoc and clip in one launch — has no caller on the training path and is not
-ported yet.)
+launches.
+
+:func:`pulse_update` replaces the fused TPU kernel ``pulse_update_pallas``
+(``pulse_update.py:166``, ``pallas_call`` at :191) with
+``csrc/pulse_update.cu``: one block per 32 x 32 device tile walks the whole
+T (no atomics), then applies ``dw = up dw_up - dn dw_dn + ctoc sqrt(up
+dw_up^2 + dn dw_dn^2) xi`` (``xi`` the counter-hash normal at ``row * N +
+col``) and the clip to +-bound in the block.  Bound: the bytes of the
+streams and the five (M, N) tiles.  It launches for CUDA tensors, runs
+:func:`pulse_update_plain` only for CPU tensors, and counts its launches in
+``update_launches``.
 """
 
 from __future__ import annotations
@@ -26,8 +35,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.noisy_mvm import check_operands
 
-#: Kernel launches since the last reset (``ops.reset_launch_counts``).
+#: Kernel launches since the last reset (``ops.reset_launch_counts``):
+#: pulse counts, fused updates.
 launches = 0
+update_launches = 0
 
 
 def pulse_counts_plain(rows2: torch.Tensor, cols2: torch.Tensor
@@ -73,3 +84,61 @@ def pulse_counts(rows2: torch.Tensor, cols2: torch.Tensor
                            f"{rc}")
     launches += 1
     return up, dn
+
+
+def pulse_update_plain(w: torch.Tensor, dw_up: torch.Tensor,
+                       dw_dn: torch.Tensor, bound: torch.Tensor,
+                       rows2: torch.Tensor, cols2: torch.Tensor, seed: int,
+                       ctoc: float) -> torch.Tensor:
+    """Plain PyTorch version of the fused update, in the kernel's order of
+    operations: counts, then the update cycle's own finalize
+    (``update.counts_to_dw``: maps, ctoc noise at ``row * N + col``), clip."""
+    from repro_torch.core import update
+    up, dn = pulse_counts_plain(rows2, cols2)
+    dw = update.counts_to_dw(up, dn, dw_up, dw_dn, seed, ctoc)
+    return torch.clamp(w + dw, -bound, bound)
+
+
+def _update_lib():
+    fn = build.load("pulse_update").pulse_update_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+            ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def pulse_update(w: torch.Tensor, dw_up: torch.Tensor, dw_dn: torch.Tensor,
+                 bound: torch.Tensor, rows2: torch.Tensor,
+                 cols2: torch.Tensor, seed: int, *, ctoc: float
+                 ) -> torch.Tensor:
+    """One update cycle of the physical weights ``w (M, N)`` under the
+    device maps ``dw_up``, ``dw_dn``, ``bound`` (each ``(M, N)``) from row
+    streams ``(T, M)`` and column streams ``(T, N)`` (entries 0, +-1), with
+    ctoc noise from the u32 ``seed``.  Returns the new weights."""
+    global update_launches
+    m, n = w.shape
+    if rows2.dim() != 2 or cols2.dim() != 2 or rows2.shape[0] != \
+            cols2.shape[0] or rows2.shape[1] != m or cols2.shape[1] != n:
+        raise ValueError(f"streams {tuple(rows2.shape)} and "
+                         f"{tuple(cols2.shape)} do not fit weights "
+                         f"{tuple(w.shape)}")
+    for t in (dw_up, dw_dn, bound):
+        if t.shape != w.shape:
+            raise ValueError(f"map {tuple(t.shape)} does not fit weights "
+                             f"{tuple(w.shape)}")
+    if not w.is_cuda:
+        return pulse_update_plain(w, dw_up, dw_dn, bound, rows2, cols2,
+                                  seed, ctoc)
+    check_operands(w, dw_up, dw_dn, bound, rows2, cols2)
+    out = torch.empty_like(w)
+    rc = _update_lib()(w.data_ptr(), dw_up.data_ptr(), dw_dn.data_ptr(),
+                       bound.data_ptr(), rows2.data_ptr(), cols2.data_ptr(),
+                       out.data_ptr(), rows2.shape[0], m, n,
+                       int(seed) & 0xFFFFFFFF, float(ctoc),
+                       torch.cuda.current_stream(w.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"pulse_update kernel launch failed: CUDA error "
+                           f"{rc}")
+    update_launches += 1
+    return out

@@ -1,12 +1,13 @@
-"""Grouped-query causal self-attention: chunked online-softmax prefill and
-single-token decode over a KV cache.
+"""Grouped-query causal self-attention with optional qk RMS-norm (qwen3):
+online-softmax prefill and single-token decode over a KV cache.
 
 The projections go through ``layers.dense_apply``, so an analog policy
 turns them into managed array reads; their read keys are
 ``fold_in(akey, 0/1/2)`` for q/k/v and ``fold_in(akey, 3)`` for o, as in the
-JAX package.  Prefill attention is the plain-PyTorch chunked online-softmax
-loop (the JAX package's ``_flash`` fallback); the Pallas flash-attention
-kernel is not part of this package yet.
+JAX package.  Prefill attention is the flash-attention kernel
+(``kernels/flash_attention.py``) when ``cfg.use_flash_kernel`` is set, else
+the plain-PyTorch chunked online-softmax loop (the JAX package's ``_flash``
+fallback).  Decode is einsum + softmax over the cache.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import layers as L
 from repro_torch.utils import prng
 
@@ -29,8 +31,12 @@ def init(gen: torch.Generator, cfg: ModelConfig, device) -> Dict[str, Any]:
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     mk = lambda d_in, d_out: L.dense_init(gen, d_in, d_out, cfg.param_dtype,
                                           device)
-    return {"q": mk(d, h * hd), "k": mk(d, hkv * hd), "v": mk(d, hkv * hd),
-            "o": mk(h * hd, d)}
+    p = {"q": mk(d, h * hd), "k": mk(d, hkv * hd), "v": mk(d, hkv * hd),
+         "o": mk(h * hd, d)}
+    if cfg.qk_norm:
+        p["q_norm"] = L.rmsnorm_init(hd, cfg.param_dtype, device)
+        p["k_norm"] = L.rmsnorm_init(hd, cfg.param_dtype, device)
+    return p
 
 
 def _project_qkv(p, x_q: Tensor, x_kv: Tensor, cfg: ModelConfig, akey=None):
@@ -43,6 +49,9 @@ def _project_qkv(p, x_q: Tensor, x_kv: Tensor, cfg: ModelConfig, akey=None):
     q = dense("q", x_q, 0).reshape(*x_q.shape[:-1], h, hd)
     k = dense("k", x_kv, 1).reshape(*x_kv.shape[:-1], hkv, hd)
     v = dense("v", x_kv, 2).reshape(*x_kv.shape[:-1], hkv, hd)
+    if cfg.qk_norm:
+        q = L.rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
+        k = L.rmsnorm_apply(p["k_norm"], k, cfg.norm_eps)
     return q, k, v
 
 
@@ -86,8 +95,10 @@ def _flash(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, chunk_q: int,
             pr = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l_ = l_ * corr + pr.sum(-1)
+            # P rounds to V's dtype, the product accumulates in float32
             acc = acc * corr[..., None] + torch.einsum(
-                "bhqk,bhkd->bhqd", pr.to(v_blk.dtype), v_blk).float()
+                "bhqk,bhkd->bhqd", pr.to(v_blk.dtype).float(),
+                v_blk.float())
             m = m_new
         outs.append(acc / torch.clamp_min(l_[..., None], 1e-30))
     out = torch.cat(outs, dim=2).permute(0, 2, 1, 3)
@@ -101,9 +112,13 @@ def forward(p, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
     q, k, v = _project_qkv(p, x, x, cfg, akey)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    out = _flash(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), causal=True,
-                 chunk_q=chunk_q, chunk_k=chunk_k)
+    if cfg.use_flash_kernel:
+        with torch.profiler.record_function("flash_attention"):
+            out = fa.flash_attention(q, k, v, causal=True, window=0)
+    else:
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        out = _flash(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
+                     causal=True, chunk_q=chunk_q, chunk_k=chunk_k)
     out = out.reshape(*out.shape[:-2], cfg.n_heads * cfg.head_dim)
     okey = None if akey is None else prng.fold_in(akey, 3)
     y = L.dense_apply(p["o"], out, key=okey)
