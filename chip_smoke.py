@@ -5,7 +5,9 @@
 Phases, each of which makes the script exit non-zero when it fails:
 
   (a) build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
-      per source, all started together);
+      per source, all started together), and read the flash kernel's SASS:
+      tensor-core HMMA with bf16 operands in every bf16 instantiation, none
+      in the f32 ones;
   (b) hold the read kernels against their plain PyTorch versions on the
       card at deepseek_7b's read shapes (and transpose, #_d = 13 and
       row-offset variants) and the managed read at qwen3_14b's (prefill B
@@ -47,7 +49,8 @@ Phases, each of which makes the script exit non-zero when it fails:
       random weights from a seed) with the flash kernel under two-phase
       bound management: batch 2, prompt 1000, 16 new tokens; launches per
       kind, no plain-version call, tok/s, one prefill's wall and device time
-      and the flash kernel's share, one decode step's; then one digital
+      and the flash kernel's share, one decode step's (each managed read one
+      gemv kernel, no epilogue kernel beside it); then one digital
       (bfloat16) prefill;
   (r3) the qwen3 smoke model on the card against the CPU with the flash
       kernel off and on: equal greedy tokens, logits within 1e-4;
@@ -55,7 +58,10 @@ Phases, each of which makes the script exit non-zero when it fails:
       PyTorch call on the same shapes (yardstick only): ``torch.matmul``
       for the reads and the count products, ``F.conv2d`` for the conv read,
       ``F.scaled_dot_product_attention`` for the flash kernel, two
-      ``torch.matmul`` and the elementwise finalize for the fused update.
+      ``torch.matmul`` and the elementwise finalize for the fused update;
+      the managed read also at qwen3_14b's read shapes (B 2000 and 2), and
+      where the time of one decode read goes (host enqueue, wall, device
+      time and kernels per read).
 
 The line before the card line is the kernels' JSON summary; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
@@ -89,6 +95,13 @@ TIME_SHAPES = [("q/k/v/o 4096x4096", 4096, 4096, 1),
                ("wg/wi 11008x4096", 11008, 4096, 1),
                ("wo 4096x11008", 4096, 11008, 3),
                ("unembed 102400x4096", 102400, 4096, 1)]
+# qwen3_14b's managed reads: (name, rows, cols, segments, batches), at the
+# prefill's B = 2 x 1000 and the decode's B = 2
+QWEN_TIME_SHAPES = [("qwen3 q/o 5120x5120", 5120, 5120, 2, (2000, 2)),
+                    ("qwen3 k/v 1024x5120", 1024, 5120, 2, (2000, 2)),
+                    ("qwen3 wg/wi 17408x5120", 17408, 5120, 2, (2000, 2)),
+                    ("qwen3 wo 5120x17408", 5120, 17408, 5, (2000, 2)),
+                    ("qwen3 unembed 151936x5120", 151936, 5120, 2, (2,))]
 SMOKE = False                    # full published size
 
 # LeNet training (slice 2): policies and their launches per step
@@ -204,7 +217,42 @@ def build_kernels():
             if "registers" in line or "spill" in line:
                 print(f"  {line.strip()}")
     print(f"[build] {len(paths)} kernels in {dt:.1f}s (parallel nvcc)")
+    sass_check(paths["flash_attention"])
     return dt
+
+
+def _sass_functions(lib):
+    """{function name: its SASS} of a built library (``cuobjdump -sass``)."""
+    cuobjdump = Path("/usr/local/cuda/bin/cuobjdump")
+    tool = str(cuobjdump) if cuobjdump.exists() else "cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def sass_check(lib):
+    """The flash kernel's bf16 instantiations multiply on the tensor cores
+    (HMMA with bf16 operands), its f32 ones never touch them (no HMMA, so
+    no TF32)."""
+    funcs = _sass_functions(lib)
+    tc = {k: v.count("HMMA") for k, v in funcs.items() if "2tc6kernel" in k}
+    fp = {k: v.count("HMMA") for k, v in funcs.items() if "2fp6kernel" in k}
+    bf16 = {k: ("BF16" in v) for k, v in funcs.items() if "2tc6kernel" in k}
+    print(f"[sass] flash bf16 kernels: HMMA per instantiation "
+          f"{sorted(tc.values())}, bf16 operands in all: "
+          f"{all(bf16.values())}; f32 kernels: HMMA {sorted(fp.values())}")
+    check(len(tc) == 8 and all(n > 0 for n in tc.values())
+          and all(bf16.values()),
+          "the bf16 flash kernels do not run on the tensor cores")
+    check(len(fp) == 8 and not any(fp.values()),
+          "an f32 flash kernel uses the tensor cores")
 
 
 # ---------------------------------------------------------------------------
@@ -448,7 +496,8 @@ def _profile_report(rows, wall, what):
     for key, n, ms in rows[:8]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {key[:70]}")
     return dict(wall_ms=wall, device_busy_ms=busy,
-                top=[dict(kernel=k, count=n, ms=ms) for k, n, ms in rows[:12]])
+                top=[dict(kernel=k, count=n, ms=ms) for k, n, ms in rows[:12]],
+                kernels={k: n for k, n, _ in rows})
 
 
 # ---------------------------------------------------------------------------
@@ -545,18 +594,25 @@ def _device_ms(fn, names, iters=10):
 
 def _kernel_time(fk, names):
     """A wrapper's time per call: the profiler's device time of its
-    kernels, and beside it CUDA events around 20 back-to-back calls (the
-    kernels plus the wrapper's own allocations and launch gaps)."""
+    kernels and CUDA events around 20 back-to-back calls (the kernels plus
+    the wrapper's own allocations and launch gaps).  ``ms`` is the larger:
+    the profiler has read a kernel at half its event time, and events
+    read the host where its enqueue outlasts the kernel."""
     dev_ms, kept, made = _device_ms(fk, names)
     ev_ms = _event_ms(fk)
-    return dict(ms=dev_ms if dev_ms is not None else ev_ms,
-                ms_source="profiler" if dev_ms is not None else "events",
-                profiler_records=f"{kept}/{made}", event_ms=ev_ms)
+    by_events = dev_ms is None or ev_ms > dev_ms
+    return dict(ms=ev_ms if by_events else dev_ms,
+                ms_source="events" if by_events else "profiler",
+                profiler_ms=dev_ms, profiler_records=f"{kept}/{made}",
+                event_ms=ev_ms)
 
 
 def _time_text(row):
-    return (f"kernel {row['ms']:.4f} ms ({row['ms_source']}, records "
-            f"{row['profiler_records']}; events {row['event_ms']:.4f})")
+    prof = ("no record" if row["profiler_ms"] is None
+            else f"{row['profiler_ms']:.4f}")
+    return (f"kernel {row['ms']:.4f} ms ({row['ms_source']}; profiler "
+            f"{prof}, records {row['profiler_records']}; events "
+            f"{row['event_ms']:.4f})")
 
 
 def kernel_times(results):
@@ -580,7 +636,7 @@ def kernel_times(results):
                 "managed_mvm": (
                     lambda: km.managed_mvm(w, x, nm, (1, 2), **mkw),
                     lambda: km.managed_mvm_plain(w, x, nm, (1, 2), **mkw),
-                    ("managed_",)),
+                    ("managed_", "gemm::")),
             }
             flops = 2.0 * b * r * c
             lib_ms = _event_ms(lambda: torch.matmul(x, w.T))
@@ -600,8 +656,94 @@ def kernel_times(results):
                       f"{row['bound_ms']:.4f} ms ({row['bound_by']}) plain "
                       f"{row['plain_ms']:.4f} ms matmul {lib_ms:.4f} ms")
             del w, x
+    for name, r, c, n_seg, batches in QWEN_TIME_SHAPES:
+        for b in batches:
+            w, x = _inputs(b, r, c, False, seed=8)
+            nm = torch.ones(b, 1, device=DEV)
+            mkw = dict(sigma=SIGMA, alpha=ALPHA, n_seg=n_seg, two_phase=True,
+                       retry_scale=16.0)
+            flops = 2.0 * b * r * c
+            byts = 4 * (r * c + b * c + b * r + 2 * b)
+            bound = max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
+            row = dict(kernel="managed_mvm", shape=name, batch=b,
+                       **_kernel_time(
+                           lambda: km.managed_mvm(w, x, nm, (1, 2), **mkw),
+                           ("managed_", "gemm::")),
+                       plain_ms=_event_ms(
+                           lambda: km.managed_mvm_plain(w, x, nm, (1, 2),
+                                                        **mkw), iters=3),
+                       library_ms=_event_ms(lambda: torch.matmul(x, w.T)),
+                       bound_ms=bound * 1e3,
+                       bound_by="bytes" if byts / HBM_BYTES_PER_S
+                       >= flops / FP32_FLOPS_PER_S else "operations")
+            row["tflops"] = flops / row["ms"] / 1e9
+            rows.append(row)
+            print(f"[time] managed_mvm {name:<26} B={b:<4} {_time_text(row)} "
+                  f"({row['tflops']:.1f} TFLOP/s) bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) plain "
+                  f"{row['plain_ms']:.4f} ms matmul "
+                  f"{row['library_ms']:.4f} ms")
+            del w, x
     results["times"] = rows
+    results["read_split"] = read_split()
     return rows
+
+
+def read_split(iters=50):
+    """Where the time of one decode read goes (wo 4096x11008, B = 4, where
+    events and the profiler disagreed most for the two-launch design): the
+    host time of one wrapper call without a synchronise (allocations, the
+    ctypes call and the launch: the enqueue), the wall time per read of
+    back-to-back reads, the device time of its kernels and the CUDA
+    kernels launched per read, and the host ops the profiler saw, per
+    read."""
+    import torch
+    from repro_torch.kernels import managed_mvm as km
+    w, x = _inputs(BATCH, 4096, 11008, False, seed=9)
+    nm = torch.ones(BATCH, 1, device=DEV)
+    kw = dict(sigma=SIGMA, alpha=ALPHA, n_seg=3, two_phase=True,
+              retry_scale=16.0)
+    read = lambda: km.managed_mvm(w, x, nm, (1, 2), **kw)
+    read()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        read()
+    host_us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) / iters * 1e6
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            read()
+        torch.cuda.synchronize()
+    kernels, host_ops = {}, {}
+    for ev in prof.key_averages():
+        on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
+        dev = (getattr(ev, "self_device_time_total", 0) or 0)
+        if on_device and dev > 0:
+            kernels[ev.key] = dict(per_read=ev.count / iters,
+                                   us=dev / ev.count)
+        elif not on_device:
+            host_ops[ev.key] = dict(
+                per_read=ev.count / iters,
+                us=(getattr(ev, "self_cpu_time_total", 0) or 0) / iters)
+    device_us = sum(k["us"] * k["per_read"] for k in kernels.values())
+    print(f"[split] one decode read wo 4096x11008 B=4: host {host_us:.1f} "
+          f"us per call (enqueue), wall {wall_us:.1f} us per read "
+          f"back-to-back, device {device_us:.1f} us; kernels per read "
+          + ", ".join(f"{k[:60]} x{v['per_read']:.2f} ({v['us']:.1f} us)"
+                      for k, v in kernels.items()))
+    top = sorted(host_ops.items(), key=lambda kv: -kv[1]["us"])[:8]
+    print("[split] host ops per read: " + ", ".join(
+        f"{k[:40]} x{v['per_read']:.2f} {v['us']:.1f} us" for k, v in top))
+    launched = {k: round(v["per_read"] * iters) for k, v in host_ops.items()
+                if k.startswith("cudaLaunch")}
+    check(launched == {"cudaLaunchCooperativeKernel": iters},
+          f"{iters} decode reads made the launches {launched}")
+    return dict(host_us=host_us, wall_us=wall_us, device_us=device_us,
+                kernels=kernels, host_ops=dict(top))
 
 
 # ---------------------------------------------------------------------------
@@ -1272,10 +1414,10 @@ def serve_qwen3(results):
               "logit shape")
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        decode = _profile_step(
-            lambda: engine.serve_step(params, tok, cache, cfg,
-                                      akey=engine.decode_step_key(akey, 0)),
-            "one qwen3 decode step (B 2)")
+        step = lambda: engine.serve_step(
+            params, tok, cache, cfg, akey=engine.decode_step_key(akey, 0))
+        decode = _profile_step(step, "one qwen3 decode step (B 2)")
+        _one_launch_reads(step, 7 * cfg.n_layers + 1)
         del logits, cache
         rows = _device_rows(prefill)
     prof = _profile_report(rows, wall, "one qwen3 prefill (B 2, S 1000)")
@@ -1327,6 +1469,41 @@ def serve_qwen3(results):
                                        logits_dtype=str(logits.dtype))
     del params, logits
     _free()
+
+
+def _one_launch_reads(step, reads):
+    """A decode step's managed reads are one kernel launch each.  In one
+    profiled step the managed-read counter and the host's
+    ``cudaLaunchCooperativeKernel`` records (runtime-API records, which
+    the profiler keeps where it drops kernel records; nothing else in a
+    decode step launches cooperatively) must both equal ``reads``, the
+    gemv kernel must have records, and #2's tiled and epilogue kernels
+    none.  It fails when the profiler kept no kernel record at all."""
+    import torch
+    from repro_torch.kernels import ops
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    ops.reset_launch_counts()
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    counted = ops.launch_counts()["managed_read"]
+    kern, host = {}, {}
+    for ev in prof.key_averages():
+        on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
+        (kern if on_device else host)[ev.key] = ev.count
+    check(kern, "the profiler kept no kernel record of the decode step")
+    coop = sum(n for k, n in host.items()
+               if k.startswith("cudaLaunchCooperativeKernel"))
+    gemv = sum(n for k, n in kern.items() if "gemv_kernel" in k)
+    other = {k: n for k, n in kern.items()
+             if ("gemm::" in k or "managed_epilogue" in k)
+             and "gemv_kernel" not in k}
+    print(f"[serve_qwen3] decode step: {reads} managed reads, counter "
+          f"{counted}, cooperative launches {coop}, gemv kernel records "
+          f"{gemv}, other read kernels {other}")
+    check(counted == reads and coop == reads and 0 < gemv <= reads
+          and not other, "a decode read is not one cooperative gemv launch")
 
 
 # ---------------------------------------------------------------------------
@@ -1544,8 +1721,9 @@ def summary_line(results):
     11008x4096, B=4, for the read kernels; LeNet's K1, W3 or K1 BL=1 for the
     training kernels; K2 #_d=13 for the fused update; qwen3's float32
     prefill for flash attention), with the launches of the run named
-    there; ``ms`` is the profiler's device time of the kernels, ``event_ms``
-    CUDA events around back-to-back calls of the wrapper."""
+    there; ``ms`` is the larger of ``profiler_ms``, the profiler's device
+    time of the kernels, and ``event_ms``, CUDA events around back-to-back
+    calls of the wrapper."""
     kernels = []
     for kname, meta in KERNELS.items():
         t = next(r for r in results["times"] if r["kernel"] == kname
@@ -1557,7 +1735,8 @@ def summary_line(results):
             name=kname, route=meta["route"], source=meta["source"],
             replaces=meta["replaces"],
             launches=results[meta["run"]]["launches"][meta["kind"]],
-            max_abs_err=err, ms=t["ms"], event_ms=t["event_ms"],
+            max_abs_err=err, ms=t["ms"], profiler_ms=t["profiler_ms"],
+            event_ms=t["event_ms"],
             plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"]))

@@ -1,5 +1,10 @@
-// Shared body of the analog array-read kernels (noisy_mvm.cu, managed_mvm.cu,
-// and through managed_read.cuh conv_mvm.cu and bwd_update_mvm.cu).
+// Shared body of the analog array-read kernels #1 noisy_mvm.cu and, through
+// managed_read.cuh, #3 conv_mvm.cu and #6/#7 bwd_update_mvm.cu.  Kernel #2
+// managed_mvm.cu has its own product (managed_gemm.cuh: 8x8 register tiles
+// with float4 loads prefetched a k-tile ahead, and a one-launch decode
+// gemv) and takes only the noise, the read and the managed value from here
+// and managed_read.cuh.  Moving #1, #3, #6 and #7 onto #2's product is open
+// work (ROADMAP.md, Queue 2).
 //
 // A physical array read
 //     y = sum_seg clip(W_seg x_seg + sigma * xi, +-alpha)
@@ -18,19 +23,19 @@
 // the compiler cannot contract them into FMAs: they round exactly as the
 // plain PyTorch versions do.
 //
-// Two product paths, chosen from the shapes:
-//   Warp-per-column (forward reads with B <= 8: every decode read).  One
-//     warp walks one row of W with coalesced 128-byte loads, lanes along the
-//     contraction, each lane accumulating all B input rows; a butterfly
-//     shuffle reduces each row's sum at the segment end and lane b then reads
-//     row b.  W is read exactly once, with no shared memory and no barrier,
-//     so many loads stay in flight: the path is bound by the bytes of W.
+// Two product paths of this older body, chosen from the shapes:
+//   Warp-per-column (forward reads with B <= 8).  One warp walks one row of
+//     W with coalesced 128-byte loads, lanes along the contraction, each
+//     lane accumulating all B input rows (one scalar load of W and B of x
+//     per element: bound by load issue rather than bytes); a butterfly
+//     shuffle reduces each row's sum at the segment end and lane b then
+//     reads row b.
 //   Tiled (everything else: prefill, transpose).  One block computes a
 //     64 x 64 tile of outputs, 4 x 4 per thread, staging 16-deep k-tiles of
-//     W and x through shared memory: bound by fp32 FMA throughput.  Its x
-//     loader is a template parameter, so the conv read builds patch
-//     elements by index from the activation volume (implicit im2col) in
-//     the same loop.
+//     W and x through shared memory with scalar loads and no prefetch (two
+//     FMAs per shared load).  Its x loader is a template parameter, so the
+//     conv read builds patch elements by index from the activation volume
+//     (implicit im2col) in the same loop.
 #pragma once
 
 #include <cstdint>

@@ -1,4 +1,4 @@
-// managed_mvm: the fused managed analog read on Hopper.
+// managed_mvm: the fused managed analog read on Hopper (kernel #2).
 //
 // Replaces the TPU kernel managed_mvm_pallas (src/repro/kernels/managed_mvm.py,
 // pallas_call at :284):
@@ -10,96 +10,161 @@
 // matmul), at the same noise counter with their own seeds.
 //
 // The TPU kernel keeps the whole replica-padded output row in one VMEM block
-// so that one per-row flag gates the select.  At out = 11008 or 102400 three
-// such f32 rows per batch row do not fit Hopper's 227 KB of shared memory,
-// so here the read is two launches: the main kernel tiles (row-block,
-// out-block) like noisy_mvm, writes the acc1/acc2 partials to global memory
-// and ORs the per-row sat1/sat2 flags across blocks with atomics; a small
-// epilogue launch then selects, rescales, averages the #_d replicas and
-// writes the residual flag.
-//
-// Bound on the H100: as noisy_mvm (bytes of W at decode through the
-// warp-per-column path, fp32 FMAs at prefill through the tiled path); the
-// partials add 2 * B * out * 4 bytes of writes and reads, small against W at
-// every shape of the serving path.
-#include "managed_read.cuh"
+// so that one per-row flag gates the select.  Here the per-row flags are
+// ORed across blocks with atomics into a scratch per device and stream, and
+// the select waits for every block (managed_gemm.cuh):
+//   Decode (forward, B <= 8): ONE cooperative launch.  The gemv streams W
+//     with float4 loads (x through L1), meets at a grid-wide barrier once
+//     every flag is raised, then every block runs its share of the select /
+//     rescale / #_d average and the last one clears the flags.  Bound: the
+//     bytes of W (2 B flops per 4 bytes).
+//   Prefill and transposed reads: a SIMT SGEMM (128x128 or 64x128 tiles,
+//     8x8 outputs per thread, 16-deep k-tiles through a 3-stage cp.async
+//     ring, IEEE FMAs, no TF32; one block per tile and contraction
+//     segment) writes both reads of each segment, then a grid-stride
+//     epilogue launch sums the segments in order, selects and clears the
+//     flags (the select of a row needs every column block).  Bound: fp32
+//     FMAs at 67 TFLOP/s.
+// Residual is written as bytes (0 or 1) that the wrapper views as bool.
+#include "managed_gemm.cuh"
 
-namespace analog {
+namespace {
 
-// Decode reads: one warp per output column (see analog_read.cuh).
-__global__ void __launch_bounds__(THREADS)
-    managed_gemv_kernel(ReadArgs a, const float* __restrict__ nm,
-                        uint32_t seed1, uint32_t seed2, int two_phase,
-                        float retry_scale, float* __restrict__ acc1,
-                        float* __restrict__ acc2, int* __restrict__ sat1,
-                        int* __restrict__ sat2) {
-  const int lane = threadIdx.x & 31;
-  const int o = blockIdx.x * GEMV_WARPS + (threadIdx.x >> 5);
-  if (o >= a.out_dim) return;  // warp-uniform
-  const uint32_t seed1_m = mix32(seed1), seed2_m = mix32(seed2);
-  const float s = lane < a.B ? nm[lane] : 1.0f;
-  float y1 = 0.0f, y2 = 0.0f;
-  bool f1 = false, f2 = false;
-  for (int si = 0; si < a.n_seg; ++si) {
-    const int ks = si * a.seg_len;
-    const int ke = min(a.K, ks + a.seg_len);
-    const float v = gemv_segment(a, o, ks, ke, lane);
-    if (lane < a.B)
-      managed_value(a, v, s, seed1_m, seed2_m, two_phase, retry_scale,
-                    counter(a, lane, si, o), y1, y2, f1, f2);
-  }
-  if (lane < a.B) {
-    const size_t i = (size_t)lane * a.out_dim + o;
-    acc1[i] = y1;
-    if (two_phase) acc2[i] = y2;
-    if (f1) atomicOr(&sat1[lane], 1);
-    if (f2) atomicOr(&sat2[lane], 1);
-  }
-}
+using analog::ReadArgs;
+namespace g = analog::gemm;
 
-// Prefill and transposed reads: 64 x 64 output tiles.
-__global__ void __launch_bounds__(THREADS)
-    managed_tile_kernel(ReadArgs a, const float* __restrict__ nm,
-                        uint32_t seed1, uint32_t seed2, int two_phase,
-                        float retry_scale, float* __restrict__ acc1,
-                        float* __restrict__ acc2, int* __restrict__ sat1,
-                        int* __restrict__ sat2) {
-  __shared__ Smem sm;
-  managed_tile_block(sm, a, DenseX(), nm, mix32(seed1), mix32(seed2),
-                     two_phase, retry_scale, acc1, acc2, sat1, sat2,
-                     blockIdx.y * BM, blockIdx.x * BN);
-}
-
-}  // namespace analog
-
-// Outputs: y (B, out_f) f32 and residual (B,) int32.  Scratch: acc1/acc2
-// (B, out_phys) f32 and sat1/sat2 (B,) int32, the flags zeroed by the caller
-// (acc2 may alias acc1 when two_phase is 0).
-extern "C" int managed_mvm_launch(
-    const float* w, const float* x, const float* nm, float* y, int* residual,
-    float* acc1, float* acc2, int* sat1, int* sat2, int B, int K,
-    int out_phys, int d_avg, int n_seg, int seg_len, int transpose,
-    float sigma, float alpha, int has_alpha, unsigned seed1, unsigned seed2,
-    int two_phase, float retry_scale, unsigned row_offset, unsigned n_total,
-    void* stream) {
-  analog::ReadArgs a{w,     x,         B,     K,     out_phys,   n_seg,
-                     seg_len, transpose, sigma, alpha, has_alpha,
-                     row_offset, n_total};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!transpose && B <= analog::GEMV_MAXB) {
-    const int blocks =
-        (out_phys + analog::GEMV_WARPS - 1) / analog::GEMV_WARPS;
-    analog::managed_gemv_kernel<<<blocks, analog::THREADS, 0, s>>>(
-        a, nm, seed1, seed2, two_phase, retry_scale, acc1, acc2, sat1, sat2);
-  } else {
-    dim3 grid((out_phys + analog::BN - 1) / analog::BN,
-              (B + analog::BM - 1) / analog::BM);
-    analog::managed_tile_kernel<<<grid, analog::THREADS, 0, s>>>(
-        a, nm, seed1, seed2, two_phase, retry_scale, acc1, acc2, sat1, sat2);
-  }
-  cudaError_t err = cudaGetLastError();
+template <int BM, int BN, bool VEC, bool TRANS>
+int launch_tile(const ReadArgs& a, const float* nm, uint32_t seed1,
+                uint32_t seed2, int two_phase, float retry_scale, float* acc1,
+                float* acc2, int* sat1, int* sat2, cudaStream_t s) {
+  using T = g::Tile<BM, BN, VEC, TRANS>;
+  auto kern = g::tile_kernel<BM, BN, VEC, TRANS>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  analog::launch_managed_epilogue(acc1, acc2, sat1, sat2, nm, y, residual, B,
-                                  out_phys, d_avg, two_phase, retry_scale, s);
+  const dim3 grid((a.out_dim + BN - 1) / BN, (a.B + BM - 1) / BM, a.n_seg);
+  kern<<<grid, T::THREADS, T::SMEM, s>>>(a, nm, seed1, seed2, two_phase,
+                                         retry_scale, acc1, acc2, sat1, sat2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM, int BN>
+int launch_tile_v(const ReadArgs& a, int vec, const float* nm, uint32_t s1,
+                  uint32_t s2, int tp, float rs, float* acc1, float* acc2,
+                  int* sat1, int* sat2, cudaStream_t s) {
+  if (vec)
+    return a.transpose ? launch_tile<BM, BN, true, true>(
+                             a, nm, s1, s2, tp, rs, acc1, acc2, sat1, sat2, s)
+                       : launch_tile<BM, BN, true, false>(
+                             a, nm, s1, s2, tp, rs, acc1, acc2, sat1, sat2, s);
+  return a.transpose ? launch_tile<BM, BN, false, true>(
+                           a, nm, s1, s2, tp, rs, acc1, acc2, sat1, sat2, s)
+                     : launch_tile<BM, BN, false, false>(
+                           a, nm, s1, s2, tp, rs, acc1, acc2, sat1, sat2, s);
+}
+
+// Blocks of a kernel that fit on the card at once (a cooperative launch
+// must not ask for more).
+int resident_blocks(const void* kern) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, g::GW * 32,
+                                                    0) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
+template <int NCW, bool VEC>
+int launch_gemv(ReadArgs a, const float* nm, uint32_t s1, uint32_t s2, int tp,
+                float rs, float* acc1, float* acc2, int* sat1, int* sat2,
+                int* ticket, float* y, uint8_t* residual, int d_avg,
+                cudaStream_t s) {
+  const void* kern = reinterpret_cast<const void*>(g::gemv_kernel<NCW, VEC>);
+  // all of the SM's L1 for x (the kernel takes no shared memory)
+  static const cudaError_t carve = cudaFuncSetAttribute(
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout, 0);
+  if (carve != cudaSuccess) return static_cast<int>(carve);
+  static const int fit = resident_blocks(kern);  // per instantiation
+  if (fit <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int want = (a.out_dim + g::GW * NCW - 1) / (g::GW * NCW);
+  const int blocks = want < fit ? want : fit;
+  void* args[] = {&a,    &nm,   &s1,   &s2,     &tp, &rs,       &acc1,
+                  &acc2, &sat1, &sat2, &ticket, &y,  &residual, &d_avg};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      kern, dim3(blocks), dim3(g::GW * 32), args, 0, s));
+}
+
+template <int NCW>
+int launch_gemv_v(const ReadArgs& a, int vec, const float* nm, uint32_t s1,
+                  uint32_t s2, int tp, float rs, float* acc1, float* acc2,
+                  int* sat1, int* sat2, int* ticket, float* y,
+                  uint8_t* residual, int d_avg, cudaStream_t s) {
+  return vec ? launch_gemv<NCW, true>(a, nm, s1, s2, tp, rs, acc1, acc2, sat1,
+                                      sat2, ticket, y, residual, d_avg, s)
+             : launch_gemv<NCW, false>(a, nm, s1, s2, tp, rs, acc1, acc2,
+                                       sat1, sat2, ticket, y, residual, d_avg,
+                                       s);
+}
+
+}  // namespace
+
+// Outputs: y (B, out_phys / d_avg) f32 and residual (B,) bytes.  acc1/acc2:
+// f32 partials, (B, out_phys) for the gemv and (n_seg, B, out_phys) for the
+// tiles (acc2 may alias acc1 when two_phase is 0).
+// scratch: int32 [ticket, 3 unused, sat1[cap], sat2[cap]], zero on entry and
+// left zero on return; cap >= B.  The plan (path 0: gemv with ncw outputs per
+// warp; path 1: tile_m x tile_n tiles; vec: 16-byte aligned rows of x and W)
+// comes from the wrapper's plan(); shapes it does not allow are refused.
+extern "C" int managed_mvm_launch(
+    const float* w, const float* x, const float* nm, float* y,
+    uint8_t* residual, float* acc1, float* acc2, int* scratch, int cap,
+    int B, int K, int out_phys, int d_avg, int n_seg, int seg_len,
+    int transpose, float sigma, float alpha, int has_alpha, unsigned seed1,
+    unsigned seed2, int two_phase, float retry_scale, unsigned row_offset,
+    unsigned n_total, int path, int tile_m, int tile_n, int ncw, int vec,
+    void* stream) {
+  if (B <= 0) return 0;
+  if (cap < B || d_avg <= 0 || out_phys % d_avg != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ReadArgs a{w,     x,         B,     K,     out_phys,   n_seg,
+                   seg_len, transpose, sigma, alpha, has_alpha,
+                   row_offset, n_total};
+  int* ticket = scratch;
+  int* sat1 = scratch + 4;
+  int* sat2 = scratch + 4 + cap;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 0) {
+    if (transpose || B > g::GEMV_MAXB)
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (ncw) {
+      case 1:
+        return launch_gemv_v<1>(a, vec, nm, seed1, seed2, two_phase,
+                              retry_scale, acc1, acc2, sat1, sat2, ticket, y,
+                              residual, d_avg, s);
+      case 2:
+        return launch_gemv_v<2>(a, vec, nm, seed1, seed2, two_phase,
+                              retry_scale, acc1, acc2, sat1, sat2, ticket, y,
+                              residual, d_avg, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int err;
+  if (tile_m == 128 && tile_n == 128)
+    err = launch_tile_v<128, 128>(a, vec, nm, seed1, seed2, two_phase,
+                                  retry_scale, acc1, acc2, sat1, sat2, s);
+  else if (tile_m == 64 && tile_n == 128)
+    err = launch_tile_v<64, 128>(a, vec, nm, seed1, seed2, two_phase,
+                                 retry_scale, acc1, acc2, sat1, sat2, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (err != 0) return err;
+  const int out_f = out_phys / d_avg;
+  const size_t want = ((size_t)B * out_f + 255) / 256;
+  const int blocks = want < 4096 ? (want > 0 ? (int)want : 1) : 4096;
+  g::finish_kernel<<<blocks, 256, 0, s>>>(acc1, acc2, sat1, sat2, nm, y,
+                                          residual, B, out_f, d_avg, two_phase,
+                                          retry_scale, ticket, n_seg);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
-// The managed read shared by every managed-read kernel (managed_mvm.cu,
-// conv_mvm.cu, bwd_update_mvm.cu): both two-phase BM reads from one tiled
-// product, the per-row saturation flags ORed across blocks, and the
-// select / rescale / #_d-average epilogue launch.
+// The managed read of the older shared body (conv_mvm.cu and
+// bwd_update_mvm.cu): both two-phase BM reads from one tiled product, the
+// per-row saturation flags ORed across blocks, and the select / rescale /
+// #_d-average epilogue launch.  managed_mvm.cu takes only managed_value
+// from here (its own product and epilogue: managed_gemm.cuh).
 //
 //     v   = W_seg x_seg / s                         (s: NM scale, per row)
 //     y1  = sum_seg clip(v       + sigma * xi1, +-alpha)       (seed 1)

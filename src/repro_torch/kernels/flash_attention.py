@@ -2,17 +2,21 @@
 
 Replaces the TPU kernel ``flash_attention`` (``src/repro/kernels/
 flash_attention.py:83``, ``pallas_call`` at :111) with the CUDA kernel
-``csrc/flash_attention.cu``: one block per (batch, head, 64 query rows)
-walks the key blocks with the running max, sum and float32 accumulator in
-registers, scores and probabilities in shared memory.  Causal,
-sliding-window and key-padding masks by absolute position with the finite
-``NEG_INF = -1e30``; ``block_k`` is the softmax block (the TPU's, 128 by
-default): P rounds to V's dtype at that block's running max before the P V
-product, which accumulates in float32.  K and V may carry fewer heads than
-q (grouped-query attention): query head ``h`` reads kv head ``h // (H /
-Hkv)``, as ``repeat_kv`` lays them out.  Bound: its multiply-adds, at
-float32 on the CUDA cores (scalar FMAs, no TF32), at bfloat16 on the tensor
-cores, where the bytes come close.
+``csrc/flash_attention.cu``: one block per (batch, head, 64 query rows in
+bfloat16, 128 in float32) walks the key blocks with the running max, sum
+and float32 accumulator in registers; K and V arrive in 64-key chunks
+through a ``cp.async`` ring in shared memory, and the scores never leave
+registers.  bfloat16 runs both products on the tensor cores (``mma.sync``
+m16n8k16, f32 accumulation, 16 query rows per warp); float32 runs IEEE
+FMAs on the CUDA cores (no TF32) in 8x4 score and 8x(D/16) output register
+tiles per thread.  Causal, sliding-window and key-padding masks by
+absolute position with the finite ``NEG_INF = -1e30``; ``block_k`` is the
+softmax block (the TPU's, 128 by default): P rounds to V's dtype at that
+block's running max before the P V product, which accumulates in float32.
+K and V may carry fewer heads than q (grouped-query attention): query head
+``h`` reads kv head ``h // (H / Hkv)``, as ``repeat_kv`` lays them out.
+Bound: its multiply-adds, at float32 on the CUDA cores, at bfloat16 on the
+tensor cores, where the bytes come close.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and runs
 :func:`flash_attention_plain` only for CPU tensors.  ``launches`` counts
@@ -117,6 +121,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for t in (q, k, v):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("q, k, v must be contiguous on one CUDA device")
+        if t.data_ptr() % 16:
+            raise ValueError("q, k, v must start 16-byte aligned (the "
+                             "kernel copies 16-byte chunks)")
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS or block_k not in BLOCK_KS:

@@ -4,24 +4,31 @@ average.
 
 Replaces the TPU kernel ``managed_mvm_pallas`` (``src/repro/kernels/
 managed_mvm.py:187``, ``pallas_call`` at :284) with the CUDA kernel
-``csrc/managed_mvm.cu``.  The TPU kernel holds a whole replica-padded output
-row in VMEM so one per-row flag can gate the select; at out = 11008 or
-102400 that does not fit Hopper's shared memory, so the CUDA read is two
-launches: a main kernel over (row-block, out-block) that writes both reads'
-partial sums and ORs the per-row flags with atomics, and a small epilogue
-that selects, rescales and averages.  Bound: the bytes of W at decode, fp32
-FMAs at prefill (see the source's header note).
+``csrc/managed_mvm.cu`` (product and epilogue in ``csrc/managed_gemm.cuh``).
+The TPU kernel holds a whole replica-padded output row in VMEM so one
+per-row flag can gate the select; here the flags are ORed across blocks
+into a scratch per device and stream that every call leaves zeroed, and
+:func:`plan` picks one of two paths from the shapes:
+
+* decode (forward, B <= 8): one cooperative launch.  A gemv streams W with
+  float4 loads (x through L1), meets at a grid-wide barrier once every flag
+  is raised, selects, and its last block clears the flags.  Bound: the
+  bytes of W.
+* everything else (prefill, transpose): a SIMT SGEMM with 8x8 outputs per
+  thread in 128x128 or 64x128 tiles (chosen so the grid fills the card), a
+  block per tile and contraction segment, then an epilogue launch that adds
+  the segments in order.  Bound: fp32 FMAs (IEEE, no TF32).
 
 :func:`managed_mvm` launches it for CUDA tensors and runs
 :func:`managed_mvm_plain`, the same function in plain PyTorch, only for CPU
-tensors.  ``launches`` counts managed reads (each is the two launches).
+tensors.  ``launches`` counts managed reads (one or two launches each).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -97,10 +104,72 @@ def managed_mvm_plain(w: torch.Tensor, x2d: torch.Tensor, nm_s: torch.Tensor,
                               d_avg=d_avg)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+#: Streaming multiprocessors of the H100 (the grid the tile plan fills).
+SMS = 132
+#: Largest batch the decode (gemv) path takes.
+GEMV_MAXB = 8
+
+
+class Plan(NamedTuple):
+    """How the kernel runs one read: ``path`` "gemv" (one launch) or
+    "tile" (tile_m x tile_n tiles, then the epilogue launch); ``ncw``
+    outputs per warp of the gemv; ``vec``: 16-byte loads (every row
+    16-byte aligned), else aligned scalar loads."""
+    path: str
+    tile_m: int
+    tile_n: int
+    ncw: int
+    vec: bool
+
+
+#: Tile shapes of the tiled path, largest first.
+TILES = ((128, 128), (64, 128))
+
+
+def plan(b: int, k_dim: int, out_phys: int, transpose: bool,
+         aligned: bool = True, n_seg: int = 1) -> Plan:
+    """The kernel's path for a read of ``b`` rows, contraction ``k_dim`` in
+    ``n_seg`` segments and ``out_phys`` outputs; ``aligned``: both base
+    pointers 16-byte aligned.  Rows are 16-byte aligned when every row
+    length is a multiple of 4 floats (x and W share k_dim; W's rows are
+    out_phys long when transposed).  The gemv takes 2 outputs per warp,
+    or 1 below 4096 outputs (where 2 would leave fewer than two 16-output
+    blocks per SM).  The tiled path runs a block per tile and segment,
+    and takes 128x128 tiles where they give every SM a block, else 64x128
+    (8x8 outputs per thread leave few threads at small batch)."""
+    vec = (aligned and k_dim % 4 == 0
+           and (out_phys % 4 == 0 or not transpose))
+    if not transpose and b <= GEMV_MAXB:
+        ncw = 2 if out_phys >= 4096 else 1
+        return Plan("gemv", 0, 0, ncw, vec)
+    for tm, tn in TILES:
+        if -(-b // tm) * -(-out_phys // tn) * n_seg >= SMS:
+            break
+    return Plan("tile", tm, tn, 0, vec)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
     ctypes.c_uint32, ctypes.c_int, ctypes.c_float, ctypes.c_uint32,
-    ctypes.c_uint32, ctypes.c_void_p]
+    ctypes.c_uint32] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+# per (device, stream): int32 flag scratch (zero between calls) and the
+# gemv's f32 partials, grown on demand.  Reads on one stream run in order,
+# so they can share one; reads on two streams must not.
+_SCRATCH: Dict[Tuple[torch.device, int],
+               Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(dev: torch.device, stream: int, b: int, floats: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    flags, part = _SCRATCH.get((dev, stream), (None, None))
+    if flags is None or flags.numel() < 4 + 2 * b:
+        cap = max(b, GEMV_MAXB)
+        flags = torch.zeros(4 + 2 * cap, dtype=torch.int32, device=dev)
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
+    _SCRATCH[(dev, stream)] = (flags, part)
+    return flags, part
 
 
 def _lib():
@@ -144,24 +213,35 @@ def managed_mvm(w: torch.Tensor, x2d: torch.Tensor, nm_s: torch.Tensor,
     total_rows = b if total_rows is None else total_rows
     dev = w.device
     y = torch.empty(b, out_phys // d_avg, dtype=torch.float32, device=dev)
-    residual = torch.empty(b, dtype=torch.int32, device=dev)
+    residual = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
-        return y, residual.bool()
-    acc1 = torch.empty(b, out_phys, dtype=torch.float32, device=dev)
-    acc2 = (torch.empty_like(acc1) if two_phase else acc1)
-    flags = torch.zeros(2, b, dtype=torch.int32, device=dev)
-    seg_len = -(-k_dim // n_seg)
+        return y, residual
+    p = plan(b, k_dim, out_phys, transpose,
+             w.data_ptr() % 16 == 0 and x2d.data_ptr() % 16 == 0, n_seg)
+    n_acc = b * out_phys
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    flags, part = _scratch(dev, stream, b,
+                           2 * n_acc if p.path == "gemv" else 0)
+    if p.path == "gemv":
+        acc1, acc2 = part, part[n_acc:]
+    else:
+        # one plane per contraction segment, added in order at the end
+        acc1 = torch.empty(n_seg, b, out_phys, dtype=torch.float32,
+                           device=dev)
+        acc2 = torch.empty_like(acc1) if two_phase else acc1
     rc = _lib()(
         w.data_ptr(), x2d.data_ptr(), nm.data_ptr(), y.data_ptr(),
         residual.data_ptr(), acc1.data_ptr(), acc2.data_ptr(),
-        flags[0].data_ptr(), flags[1].data_ptr(),
-        b, k_dim, out_phys, d_avg, n_seg, seg_len, int(transpose),
+        flags.data_ptr(), (flags.numel() - 4) // 2,
+        b, k_dim, out_phys, d_avg, n_seg, -(-k_dim // n_seg), int(transpose),
         float(sigma), float(alpha), int(math.isfinite(alpha)),
         int(seeds[0]) & _M32, int(seeds[1]) & _M32, int(two_phase),
         float(retry_scale), int(row_offset or 0) & _M32,
         (total_rows * n_seg * out_phys) & _M32,
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(p.path == "tile"), p.tile_m, p.tile_n, p.ncw, int(p.vec),
+        stream)
     if rc != 0:
-        raise RuntimeError(f"managed_mvm kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"managed_mvm kernel launch failed: CUDA error "
+                           f"{rc}")
     launches += 1
-    return y, residual != 0
+    return y, residual

@@ -166,3 +166,29 @@ def test_cuda_kernel_matches_plain(b, sq, sk, h, d, causal, window, bq, bk,
     else:
         assert (np.abs(got - want) <= _bf16_tol(
             q, k, v, causal=causal, window=window, block_k=bk)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bk", [64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 40)])
+def test_cuda_kernel_every_head_dim_and_block(d, bk, causal, window, dtype,
+                                              cuda):
+    """Every head dim and softmax block, grouped kv heads (4 over 2),
+    ragged Sq 200 / Sk 190 (no multiple of the 64-key chunk); the causal
+    window past the keys' end leaves rows 229.. with no valid key."""
+    dt = getattr(torch, dtype)
+    q, _, _ = _qkv(1, 230, 190, 4, d, seed=d + bk)
+    _, k, v = _qkv(1, 230, 190, 2, d, seed=d + bk + 1)
+    q, k, v = (torch.from_numpy(a).to(dt) for a in (q, k, v))
+    kw = dict(causal=causal, window=window, block_k=bk)
+    want = tfa.flash_attention_plain(q, k, v, **kw)
+    got = tfa.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+    torch.cuda.synchronize()
+    got, want = got.cpu().float().numpy(), want.float().numpy()
+    if dt == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        assert (np.abs(got - want) <= _bf16_tol(q, k, v, **kw)).all()

@@ -280,3 +280,145 @@ def test_cuda_kernels_match_plain(case, cuda):
     torch.cuda.synchronize()
     assert torch.equal(res, resp)
     torch.testing.assert_close(y, yp, rtol=0, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The managed read's launch plan (host side, runs here) and its CUDA paths
+# ---------------------------------------------------------------------------
+
+PLANS = [
+    # (B, k_dim, out_phys, transpose, aligned[, n_seg])
+    #     -> (path, tile_m, tile_n, ncw, vec)
+    ((4, 4096, 11008, False, True), ("gemv", 0, 0, 2, True)),  # deepseek wi
+    ((4, 11008, 4096, False, True), ("gemv", 0, 0, 2, True)),  # wo, 3 segs
+    ((2, 5120, 1024, False, True), ("gemv", 0, 0, 1, True)),   # qwen3 k/v
+    ((2, 5120, 151936, False, True), ("gemv", 0, 0, 2, True)),  # unembed
+    ((8, 513, 128, False, True), ("gemv", 0, 0, 1, False)),    # LeNet W3
+    ((8, 4096, 4096, False, False), ("gemv", 0, 0, 2, False)),  # unaligned
+    ((9, 4096, 4096, False, True), ("tile", 64, 128, 0, True)),  # B > 8
+    ((128, 4096, 11008, False, True), ("tile", 64, 128, 0, True)),
+    ((2000, 5120, 17408, False, True), ("tile", 128, 128, 0, True)),
+    ((2000, 5120, 5120, False, True), ("tile", 128, 128, 0, True)),
+    ((2000, 5120, 1024, False, True), ("tile", 64, 128, 0, True)),
+    ((2000, 5120, 1024, False, True, 2), ("tile", 128, 128, 0, True)),
+    ((300, 4096, 4096, False, True), ("tile", 64, 128, 0, True)),
+    ((300, 4096, 4096, False, True, 2), ("tile", 128, 128, 0, True)),
+    ((4, 4096, 4096, True, True), ("tile", 64, 128, 0, True)),   # transpose
+    ((8, 128, 513, True, True), ("tile", 64, 128, 0, False)),    # W3^T
+    ((4608, 16, 26, True, True), ("tile", 64, 128, 0, False)),   # K1^T
+    ((512, 401, 32, False, True), ("tile", 64, 128, 0, False)),  # K2 cols
+]
+
+
+@pytest.mark.parametrize("args,want", PLANS, ids=str)
+def test_managed_read_plan(args, want):
+    assert tuple(tmanaged.plan(*args)) == want
+
+
+def test_plan_fills_the_card_or_takes_the_smaller_tile():
+    """The tiled path takes 128x128 tiles where they give every SM a block
+    (a block per tile and segment), else 64x128; decode reads never take
+    the tiled path."""
+    for b, out, n_seg in itertools.product(
+            (9, 64, 128, 512, 2000, 4608), (26, 1024, 4096, 11008, 17408),
+            (1, 3)):
+        p = tmanaged.plan(b, 4096, out, False, True, n_seg)
+        blocks = {t: -(-b // t[0]) * -(-out // t[1]) * n_seg
+                  for t in tmanaged.TILES}
+        fits = [t for t in tmanaged.TILES if blocks[t] >= tmanaged.SMS]
+        assert p.path == "tile"
+        assert (p.tile_m, p.tile_n) == (fits[0] if fits
+                                        else tmanaged.TILES[-1])
+    for b in range(1, tmanaged.GEMV_MAXB + 1):
+        assert tmanaged.plan(b, 4096, 4096, False).path == "gemv"
+
+
+def _scaled(g, rows, cols, dev):
+    """Rows at scales 1, 8 and 300 in turn: no saturation, the first read
+    only, and both two-phase reads (alpha 12)."""
+    v = torch.randn(rows, cols, generator=g)
+    s = torch.tensor([1.0, 8.0, 300.0])[torch.arange(rows) % 3][:, None]
+    return (v * s).contiguous().to(dev)
+
+
+def _managed_pair(w, x, nm_on, seeds, **kw):
+    nm = (x.abs().amax(1, keepdim=True) if nm_on
+          else torch.ones(x.shape[0], 1, device=x.device))
+    kw = dict(sigma=SIGMA, alpha=12.0, two_phase=True, retry_scale=16.0,
+              **kw)
+    got = tmanaged.managed_mvm(w, x, nm, seeds, **kw)
+    want = tmanaged.managed_mvm_plain(w, x, nm, seeds, **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _assert_read_close(got, want, w, x, transpose):
+    """Within 1e-5 of the largest sum |x||w| (f32 reassociation), flags
+    equal."""
+    mag = float((x.abs() @ (w.abs() if transpose else w.abs().T)).max())
+    assert torch.equal(got[1], want[1])
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5 * max(1.0, mag)
+
+
+MANAGED_CUDA_CASES = [
+    # (B, rows, cols, n_seg, transpose, d_avg): LeNet's unaligned rows
+    (8, 16, 26, 1, False, 1), (8, 32, 401, 1, False, 1),
+    (8, 128, 513, 1, False, 1), (8, 10, 129, 1, False, 1),
+    (4608, 16, 26, 1, True, 1), (512, 32, 401, 1, True, 1),
+    (8, 128, 513, 1, True, 1), (96, 416, 401, 1, False, 13),
+    # seg_len 3670 (wo in 3 segments), decode and a partial 64-row tile
+    (4, 200, 11008, 3, False, 1), (70, 200, 11008, 3, False, 1),
+    # partial tiles: 64 x 128 (130 = 2*64 + 2 rows) and 128 x 128
+    # (600 = 4*128 + 88; 2000 = 15*128 + 80)
+    (130, 200, 300, 2, False, 1), (600, 4096, 64, 1, False, 1),
+    (2000, 2200, 64, 1, False, 1), (300, 520, 200, 2, True, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nm_on", [False, True])
+@pytest.mark.parametrize("case", MANAGED_CUDA_CASES, ids=str)
+def test_cuda_managed_paths_match_plain(case, nm_on, cuda):
+    b, r, c, n_seg, tr, d = case
+    g = torch.Generator().manual_seed(b + r + c)
+    w = (torch.randn(r, c, generator=g) * (r if tr else c) ** -0.5).to(cuda)
+    x = _scaled(g, b, r if tr else c, cuda)
+    got, want = _managed_pair(w, x, nm_on, (3, 2 ** 32 - 7), n_seg=n_seg,
+                              transpose=tr, d_avg=d)
+    _assert_read_close(got, want, w, x, tr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", range(1, 9))
+def test_cuda_gemv_every_batch(b, cuda):
+    """Every decode batch 1-8 through the one-launch gemv, with and without
+    float4 loads (a 4-aligned and an unaligned row length)."""
+    for c in (4096, 4093):
+        g = torch.Generator().manual_seed(b * c)
+        w = (torch.randn(300, c, generator=g) * c ** -0.5).to(cuda)
+        x = _scaled(g, b, c, cuda)
+        assert tmanaged.plan(b, c, 300, False).path == "gemv"
+        for nm_on in (False, True):
+            got, want = _managed_pair(w, x, nm_on, (b, 9), n_seg=2)
+            _assert_read_close(got, want, w, x, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 512, 4096), (200, 512, 4096)],
+                         ids=["gemv", "tile"])
+def test_cuda_flags_do_not_leak_between_reads(shape, cuda):
+    """A read whose rows saturate on both reads, then one that saturates
+    nowhere, on one stream: the second read's flags are its own, and the
+    scratch is zero after each read."""
+    b, r, c = shape
+    g = torch.Generator().manual_seed(11)
+    w = (torch.randn(r, c, generator=g) * c ** -0.5).to(cuda)
+    loud = (torch.randn(b, c, generator=g) * 300.0).to(cuda)
+    quiet = (torch.randn(b, c, generator=g) * 0.1).to(cuda)
+    for x, sat in ((loud, True), (quiet, False), (loud, True)):
+        got, want = _managed_pair(w, x, False, (1, 2))
+        assert bool(got[1].all()) == sat and torch.equal(got[1], want[1])
+        _assert_read_close(got, want, w, x, False)
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        flags, _ = tmanaged._SCRATCH[(w.device, stream)]
+        assert int(flags.abs().sum()) == 0
