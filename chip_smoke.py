@@ -10,14 +10,17 @@ Phases, each of which makes the script exit non-zero when it fails:
       in the f32 ones;
   (b) hold the read kernels against their plain PyTorch versions on the
       card at deepseek_7b's read shapes (and transpose, #_d = 13 and
-      row-offset variants) and the managed read at qwen3_14b's (prefill B
-      2000 and decode B 2, contractions in 2 and 5 segments, the 151936-row
-      unembed; NM off and on): max |diff| against the stated tolerance,
-      equal saturation flags;
+      row-offset variants; the raw read's decode at every batch 1-8) and
+      the managed read at qwen3_14b's (prefill B 2000 and decode B 2,
+      contractions in 2 and 5 segments, the 151936-row unembed; NM off and
+      on): max |diff| against the stated tolerance, equal saturation
+      flags;
   (c) serve the full-size deepseek_7b (30 layers, d 4096, vocab 102400,
       random weights from a seed) through ``repro_torch.launch.serve`` under
       two-phase bound management, launch counters read around the run;
-  (d) the same under the paper's iterative bound management;
+  (d) the same under the paper's iterative bound management; in one
+      profiled decode step every raw read is one ordinary kernel launch
+      (no fill, memset or flag conversion beside it);
   (r) the smoke-size model on the card (kernels) against the CPU (plain
       versions): equal greedy tokens, logits within 1e-4;
   (f) hold each training kernel (conv read, pulse counts, fused dense and
@@ -31,7 +34,8 @@ Phases, each of which makes the script exit non-zero when it fails:
       the FUSED, SEPARATE and PAPER policies (20 steps each) and ITERATIVE
       (5 steps): launches per kind per step, no plain-version call on the
       card, steps/s, images/s, and one step's wall time, device time and
-      idle share;
+      idle share; in that profiled step every conv read (and ITERATIVE's
+      raw reads) one ordinary kernel launch;
   (h) train 2 epochs of 1024 synthetic images under nm_bm with two-phase
       BM and the fused update: final test error below 0.4;
   (r2) one FUSED training step on the card against the plain CPU step on
@@ -59,9 +63,11 @@ Phases, each of which makes the script exit non-zero when it fails:
       for the reads and the count products, ``F.conv2d`` for the conv read,
       ``F.scaled_dot_product_attention`` for the flash kernel, two
       ``torch.matmul`` and the elementwise finalize for the fused update;
-      the managed read also at qwen3_14b's read shapes (B 2000 and 2), and
-      where the time of one decode read goes (host enqueue, wall, device
-      time and kernels per read).
+      the managed read also at qwen3_14b's read shapes (B 2000 and 2), the
+      raw read at the shapes of LeNet's ITERATIVE step, and where the time
+      of one read goes (#2's and #1's decode read, #3's K1 read: host
+      enqueue, wall, device time, kernels, launches and allocations per
+      read).
 
 The line before the card line is the kernels' JSON summary; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
@@ -70,6 +76,7 @@ is ``{"ok": true, "device": {...}}``.  Details go to
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
 import subprocess
@@ -301,6 +308,10 @@ def _cases():
     ]
     cases = [c + (both if c[6] == 1 else both[1:], (bool(i % 2),))
              for i, c in enumerate(ds)]
+    # the raw read's one-launch decode at every batch 1-8 (wo: 3 segments,
+    # the unaligned segment bound 3670)
+    cases += [(f"raw decode wo 4096x11008 B={b} n_seg=3", b, 4096, 11008, 3,
+               False, 1, 0, None, both[:1], (False,)) for b in range(1, 9)]
     pre, dec = QWEN_BATCH * QWEN_PROMPT, QWEN_BATCH
     for name, r, c, n_seg, bs in (
             ("qwen3 q/o 5120x5120", 5120, 5120, 2, (pre, dec)),
@@ -410,7 +421,8 @@ def serve_full(policy, results, label):
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
     check(tuple(logits.shape) == (BATCH, 1, cfg.vocab), "logit shape")
 
-    prof = _profile_decode(params, cfg, akey, prompts)
+    prof = _profile_decode(params, cfg, akey, prompts,
+                           () if policy == POLICY_2P else ("noisy_read",))
     results[label] = dict(policy=policy, tokens_shape=list(toks.shape),
                           launches=counts, tok_per_s=tok_s, seconds=dt,
                           init_s=t_init, n_params=n_params,
@@ -434,7 +446,7 @@ def _tensors(tree):
         yield tree
 
 
-def _profile_decode(params, cfg, akey, prompts):
+def _profile_decode(params, cfg, akey, prompts, reads=()):
     """One decode step: its wall time and device time (``_profile_step``)."""
     import torch
     from repro_torch.serve import engine
@@ -445,13 +457,15 @@ def _profile_decode(params, cfg, akey, prompts):
         return _profile_step(
             lambda: engine.serve_step(params, tok, cache, cfg,
                                       akey=engine.decode_step_key(akey, 0)),
-            "one decode step")
+            "one decode step", reads)
 
 
-def _profile_step(step, what):
+def _profile_step(step, what, reads=()):
     """``what``: its wall time (host clock around a synchronised call, no
     profiler), and the device time of each CUDA kernel in a second,
-    profiled call (None when the profiler records no device time)."""
+    profiled call (None when the profiler records no device time).  For
+    each read kind in ``reads`` the profiled call must make one ordinary
+    kernel launch per read (``_one_launch_per_read``)."""
     import torch
     step()
     torch.cuda.synchronize()
@@ -459,19 +473,74 @@ def _profile_step(step, what):
     step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    return _profile_report(_device_rows(step), wall, what)
+    prof = _profiled(step)
+    report = _profile_report(_device_rows(step, prof), wall, what)
+    report["reads"] = {k: _one_launch_per_read(prof, k) for k in reads}
+    return report
 
 
-def _device_rows(step):
-    """(kernel, calls, device ms) of each CUDA kernel of one profiled call
-    of ``step``, longest first; empty when the profiler records no device
-    time."""
+# read kind -> the kernel whose records its reads leave
+READ_KERNELS = {"noisy_read": "raw_", "managed_read_conv": "conv_read_kernel"}
+
+
+def _one_launch_per_read(prof, kind):
+    """Each ``kind`` read of one profiled call is one ordinary kernel launch
+    and nothing else: inside every ``kind`` range (host time, same thread)
+    the CUDA runtime calls are exactly one ``cudaLaunchKernel`` (no
+    cooperative launch, memset, copy or second launch: no fill before the
+    read and no flag conversion after it), and the read's kernel records
+    number at most the reads (the profiler may drop kernel records, even
+    every one of a few reads, but never runtime records).  Fails
+    otherwise."""
+    ranges, calls, records = [], [], 0
+    for e in prof.events():
+        on_device = str(getattr(e, "device_type", "")).endswith("CUDA")
+        if on_device:
+            records += READ_KERNELS[kind] in e.name
+        elif e.name == kind:
+            ranges.append(e)
+        elif e.name.startswith(("cudaLaunch", "cudaMemset", "cudaMemcpy")):
+            calls.append(e)
+    by_thread = {}
+    for c in sorted(calls, key=lambda c: c.time_range.start):
+        by_thread.setdefault(c.thread, []).append(c)
+    starts = {t: [c.time_range.start for c in cs]
+              for t, cs in by_thread.items()}
+    per_read = {}
+    for r in ranges:
+        cs = by_thread.get(r.thread, [])
+        i = bisect.bisect_left(starts.get(r.thread, []), r.time_range.start)
+        inside = []
+        while i < len(cs) and cs[i].time_range.start <= r.time_range.end:
+            if cs[i].time_range.end <= r.time_range.end:
+                inside.append(cs[i].name)
+            i += 1
+        key = tuple(sorted(inside))
+        per_read[key] = per_read.get(key, 0) + 1
+    print(f"[launches] {kind}: {len(ranges)} reads in one profiled call, "
+          f"runtime calls per read {per_read}, {records} kernel records")
+    check(ranges and per_read == {("cudaLaunchKernel",): len(ranges)}
+          and records <= len(ranges),
+          f"a {kind} read is not one ordinary kernel launch")
+    return dict(reads=len(ranges), kernel_records=records,
+                calls_per_read={" ".join(k): n for k, n in per_read.items()})
+
+
+def _profiled(step):
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         step()
         torch.cuda.synchronize()
+    return prof
+
+
+def _device_rows(step, prof=None):
+    """(kernel, calls, device ms) of each CUDA kernel of one profiled call
+    of ``step`` (or of the profile ``prof``), longest first; empty when the
+    profiler records no device time."""
+    prof = _profiled(step) if prof is None else prof
     rows = []
     for ev in prof.key_averages():
         # device-side events only: a host op (aten::mul) also carries the
@@ -566,13 +635,14 @@ def _event_ms(fn, iters=20):
     return a.elapsed_time(b) / iters
 
 
-def _device_ms(fn, names, iters=10):
-    """Device time per call of the CUDA kernels whose names contain one of
-    ``names`` (profiler ranges are not kernels), from torch.profiler, with
-    the kernel records it kept and the launches made: ``(ms, kept,
-    made)``, ms None without device time.  The profiler can drop records
-    (7 of 10 launches of one kernel in one run), so each kernel's time is
-    its mean over the records kept, times its launches per call."""
+def _device_ms(fn, iters=10):
+    """Device time per call of ``fn`` from torch.profiler: every device
+    operation its calls make (kernels, fills, memsets; profiler ranges are
+    not device work), with the records it kept and the operations made:
+    ``(ms, kept, made)``, ms None without device time.  The profiler can
+    drop records (7 of 10 launches of one kernel in one run), so each
+    operation's time is its mean over the records kept, times its count per
+    call."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -584,7 +654,9 @@ def _device_ms(fn, names, iters=10):
     tot, kept, made = 0.0, 0, 0
     for ev in prof.key_averages():
         dev = (getattr(ev, "self_device_time_total", 0) or 0) / 1e3
-        if dev > 0 and "kernel" in ev.key and any(n in ev.key for n in names):
+        on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
+        if dev > 0 and on_device and not getattr(ev, "is_user_annotation",
+                                                 False):
             per_call = max(1, round(ev.count / iters))
             tot += dev / ev.count * per_call
             kept += ev.count
@@ -592,13 +664,13 @@ def _device_ms(fn, names, iters=10):
     return (tot if tot > 0 else None), kept, made
 
 
-def _kernel_time(fk, names):
+def _kernel_time(fk):
     """A wrapper's time per call: the profiler's device time of its
     kernels and CUDA events around 20 back-to-back calls (the kernels plus
     the wrapper's own allocations and launch gaps).  ``ms`` is the larger:
     the profiler has read a kernel at half its event time, and events
     read the host where its enqueue outlasts the kernel."""
-    dev_ms, kept, made = _device_ms(fk, names)
+    dev_ms, kept, made = _device_ms(fk)
     ev_ms = _event_ms(fk)
     by_events = dev_ms is None or ev_ms > dev_ms
     return dict(ms=ev_ms if by_events else dev_ms,
@@ -631,22 +703,20 @@ def kernel_times(results):
             mkw = dict(kw, two_phase=True, retry_scale=16.0)
             fns = {
                 "noisy_mvm": (lambda: kn.noisy_mvm(w, x, 1, **kw),
-                              lambda: kn.noisy_mvm_plain(w, x, 1, **kw),
-                              ("noisy_",)),
+                              lambda: kn.noisy_mvm_plain(w, x, 1, **kw)),
                 "managed_mvm": (
                     lambda: km.managed_mvm(w, x, nm, (1, 2), **mkw),
-                    lambda: km.managed_mvm_plain(w, x, nm, (1, 2), **mkw),
-                    ("managed_", "gemm::")),
+                    lambda: km.managed_mvm_plain(w, x, nm, (1, 2), **mkw)),
             }
             flops = 2.0 * b * r * c
             lib_ms = _event_ms(lambda: torch.matmul(x, w.T))
-            for kname, (fk, fp, names) in fns.items():
+            for kname, (fk, fp) in fns.items():
                 out_b = 4 * b * r + 4 * b
                 byts = 4 * (r * c + b * c) + out_b + (
                     4 * b if kname == "managed_mvm" else 0)
                 bound = max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
                 row = dict(kernel=kname, shape=name, batch=b,
-                           **_kernel_time(fk, names), plain_ms=_event_ms(fp),
+                           **_kernel_time(fk), plain_ms=_event_ms(fp),
                            library_ms=lib_ms, bound_ms=bound * 1e3,
                            bound_by="bytes" if byts / HBM_BYTES_PER_S
                            >= flops / FP32_FLOPS_PER_S else "operations")
@@ -667,8 +737,7 @@ def kernel_times(results):
             bound = max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
             row = dict(kernel="managed_mvm", shape=name, batch=b,
                        **_kernel_time(
-                           lambda: km.managed_mvm(w, x, nm, (1, 2), **mkw),
-                           ("managed_", "gemm::")),
+                           lambda: km.managed_mvm(w, x, nm, (1, 2), **mkw)),
                        plain_ms=_event_ms(
                            lambda: km.managed_mvm_plain(w, x, nm, (1, 2),
                                                         **mkw), iters=3),
@@ -690,20 +759,46 @@ def kernel_times(results):
 
 
 def read_split(iters=50):
-    """Where the time of one decode read goes (wo 4096x11008, B = 4, where
-    events and the profiler disagreed most for the two-launch design): the
-    host time of one wrapper call without a synchronise (allocations, the
-    ctypes call and the launch: the enqueue), the wall time per read of
-    back-to-back reads, the device time of its kernels and the CUDA
-    kernels launched per read, and the host ops the profiler saw, per
-    read."""
+    """Where the time of one read goes, for one decode read of #2 (wo
+    4096x11008, B = 4, where events and the profiler disagreed most for
+    its two-launch design) and of #1 (the same shape) and one K1 conv read
+    of #3 (batch 8): the host time of one wrapper call without a
+    synchronise (allocations, the ctypes call and the launch: the
+    enqueue), the wall time per read of back-to-back reads, the device
+    time of its kernels, the CUDA kernels, launches and allocations per
+    read, and the host ops the profiler saw, per read.  Fails unless #2's
+    read is one cooperative launch, and #1's and #3's one ordinary launch
+    with no memset."""
     import torch
+    from repro_torch.kernels import conv_mvm as kc
     from repro_torch.kernels import managed_mvm as km
+    from repro_torch.kernels import noisy_mvm as kn
     w, x = _inputs(BATCH, 4096, 11008, False, seed=9)
     nm = torch.ones(BATCH, 1, device=DEV)
-    kw = dict(sigma=SIGMA, alpha=ALPHA, n_seg=3, two_phase=True,
-              retry_scale=16.0)
-    read = lambda: km.managed_mvm(w, x, nm, (1, 2), **kw)
+    kw = dict(sigma=SIGMA, alpha=ALPHA, n_seg=3)
+    mkw = dict(kw, two_phase=True, retry_scale=16.0)
+    name, vol, k, out = CONV_LAYERS[0]
+    geom, wc, xc = _conv_case(name, vol, k, out, 1, seed=9)
+    nm_c = torch.ones(geom.positions, 1, device=DEV)
+    ckw = dict(sigma=SIGMA, alpha=ALPHA, two_phase=True)
+    reads = [
+        ("managed_mvm", "decode read wo 4096x11008 B=4",
+         lambda: km.managed_mvm(w, x, nm, (1, 2), **mkw),
+         {"cudaLaunchCooperativeKernel": iters}),
+        ("noisy_mvm", "decode read wo 4096x11008 B=4",
+         lambda: kn.noisy_mvm(w, x, 1, **kw), {"cudaLaunchKernel": iters}),
+        ("conv_mvm", f"K1 read {name} batch {vol[0]}",
+         lambda: kc.conv_managed_mvm(wc, xc, geom, nm_c, (1, 2), **ckw),
+         {"cudaLaunchKernel": iters}),
+    ]
+    out = {}
+    for kname, what, read, want in reads:
+        out[kname] = _split(kname, what, read, want, iters)
+    return out
+
+
+def _split(kname, what, read, want, iters):
+    import torch
     read()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -730,20 +825,25 @@ def read_split(iters=50):
                 per_read=ev.count / iters,
                 us=(getattr(ev, "self_cpu_time_total", 0) or 0) / iters)
     device_us = sum(k["us"] * k["per_read"] for k in kernels.values())
-    print(f"[split] one decode read wo 4096x11008 B=4: host {host_us:.1f} "
-          f"us per call (enqueue), wall {wall_us:.1f} us per read "
-          f"back-to-back, device {device_us:.1f} us; kernels per read "
+    allocs = sum(v["per_read"] for k, v in host_ops.items()
+                 if k.startswith("aten::empty"))
+    launched = {k: round(v["per_read"] * iters) for k, v in host_ops.items()
+                if k.startswith(("cudaLaunch", "cudaMemset"))}
+    print(f"[split] {kname} {what}: host {host_us:.1f} us per call "
+          f"(enqueue), wall {wall_us:.1f} us per read back-to-back, device "
+          f"{device_us:.1f} us; launches per read "
+          + ", ".join(f"{k} x{n / iters:.2f}" for k, n in launched.items())
+          + f"; allocations per read {allocs:.2f}; kernels per read "
           + ", ".join(f"{k[:60]} x{v['per_read']:.2f} ({v['us']:.1f} us)"
                       for k, v in kernels.items()))
     top = sorted(host_ops.items(), key=lambda kv: -kv[1]["us"])[:8]
-    print("[split] host ops per read: " + ", ".join(
+    print(f"[split] {kname} host ops per read: " + ", ".join(
         f"{k[:40]} x{v['per_read']:.2f} {v['us']:.1f} us" for k, v in top))
-    launched = {k: round(v["per_read"] * iters) for k, v in host_ops.items()
-                if k.startswith("cudaLaunch")}
-    check(launched == {"cudaLaunchCooperativeKernel": iters},
-          f"{iters} decode reads made the launches {launched}")
+    check(launched == want, f"{iters} {kname} reads made the launches "
+          f"{launched}, expected {want}")
     return dict(host_us=host_us, wall_us=wall_us, device_us=device_us,
-                kernels=kernels, host_ops=dict(top))
+                launches=launched, allocations=allocs, kernels=kernels,
+                host_ops=dict(top))
 
 
 # ---------------------------------------------------------------------------
@@ -1054,9 +1154,11 @@ def lenet_train(label, policy, steps, results):
         check(bool(torch.isfinite(w).all()) and
               bool((w.abs() <= params[n].maps.bound).all()),
               f"{n}: weights not finite or outside the device bounds")
+    reads = tuple(k for k in ("managed_read_conv", "noisy_read")
+                  if counts[k])
     prof = _profile_step(
         lambda: step(params, *batch(steps), prng.fold_in(k_train, 10 ** 6)),
-        f"one {label} step")
+        f"one {label} step", reads)
     results[label] = dict(policy=policy, steps=steps, seconds=dt,
                           steps_per_s=steps / dt,
                           images_per_s=steps * b / dt, launches=counts,
@@ -1568,11 +1670,11 @@ def _bound(byts, flops, count_ops, flop_rate=FP32_FLOPS_PER_S):
                                          else "operations")
 
 
-def _time_row(rows, kernel, shape, fk, fp, flib, names, byts, flops,
-              count_ops, flop_rate=FP32_FLOPS_PER_S, batch=LENET_BATCH):
+def _time_row(rows, kernel, shape, fk, fp, flib, byts, flops, count_ops,
+              flop_rate=FP32_FLOPS_PER_S, batch=LENET_BATCH):
     bound_ms, bound_by = _bound(byts, flops, count_ops, flop_rate)
     row = dict(kernel=kernel, shape=shape, batch=batch,
-               **_kernel_time(fk, names), plain_ms=_event_ms(fp),
+               **_kernel_time(fk), plain_ms=_event_ms(fp),
                library_ms=_event_ms(flib), bound_ms=bound_ms,
                bound_by=bound_by)
     rows.append(row)
@@ -1587,9 +1689,22 @@ def training_kernel_times(results):
     from repro_torch.core import conv_mapping as cm
     from repro_torch.kernels import bwd_update_mvm as kb
     from repro_torch.kernels import conv_mvm as kc
+    from repro_torch.kernels import noisy_mvm as kn
     from repro_torch.kernels import pulse_update as kp
 
     rows = results["times"]
+    # #1 at the shapes the ITERATIVE step gives it (forward over the conv
+    # columns, transposed, W3/W4 both ways)
+    for case, w, x, tr in _lenet_reads(seed=13):
+        b, k_dim = x.shape
+        n_out = w.shape[1] if tr else w.shape[0]
+        kw = dict(sigma=SIGMA, alpha=ALPHA, transpose=tr)
+        _time_row(rows, "noisy_mvm", f"LeNet {case}",
+                  lambda: kn.noisy_mvm(w, x, 1, **kw),
+                  lambda: kn.noisy_mvm_plain(w, x, 1, **kw),
+                  lambda: torch.matmul(x, w if tr else w.T),
+                  4 * (w.numel() + x.numel() + b * n_out) + b,
+                  2.0 * b * k_dim * n_out, 0.0, batch=b)
     gains = torch.tensor([1.0, 1.0], device=DEV)
     for name, vol, k, out in CONV_LAYERS:
         for d in ((1, 13) if name == "K2" else (1,)):
@@ -1608,7 +1723,6 @@ def training_kernel_times(results):
                 lambda: kc.conv_managed_mvm_plain(w, x, geom, nm_s, (1, 2),
                                                   **kw),
                 lambda: F.conv2d(x_nchw, w_oihw, bias),
-                ("conv_managed", "managed_epilogue"),
                 4 * (x.numel() + w.numel() + p + p * out + p),
                 2.0 * p * geom.cols * m, 0.0)
             dr = torch.randn(p, m, device=DEV)
@@ -1625,7 +1739,6 @@ def training_kernel_times(results):
                                                  **bkw),
                 lambda: (torch.matmul(dr, w), torch.matmul(sb.T, sa),
                          torch.matmul(sb.abs().T, sa.abs())),
-                ("bwd_update", "managed_epilogue"),
                 4 * (w.numel() + dr.numel() + x.numel() + p + 2
                      + p * geom.cols + p + 2 * w.numel()),
                 2.0 * p * m * geom.cols, 4.0 * p * m * geom.cols)
@@ -1647,7 +1760,6 @@ def training_kernel_times(results):
                                             (3, 4, 0), gains, **bkw),
             lambda: (torch.matmul(dd, w), torch.matmul(sb.T, sa),
                      torch.matmul(sb.abs().T, sa.abs())),
-            ("bwd_update", "managed_epilogue"),
             4 * (w.numel() + dd.numel() + x.numel() + b + 2 + x.numel() + b
                  + 2 * w.numel()),
             2.0 * b * out * (n_in + 1), 4.0 * b * out * (n_in + 1))
@@ -1658,7 +1770,7 @@ def training_kernel_times(results):
                   lambda: kp.pulse_counts_plain(rws, cls),
                   lambda: (torch.matmul(rws.T, cls),
                            torch.matmul(rws.abs().T, cls.abs())),
-                  ("pulse_counts",), 4 * (t * (m + n) + 2 * m * n), 0.0,
+                  4 * (t * (m + n) + 2 * m * n), 0.0,
                   4.0 * t * m * n)
 
 
@@ -1688,7 +1800,7 @@ def slice3_kernel_times(results):
                   lambda: fa.flash_attention_plain(q, k, v),
                   lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                          is_causal=True),
-                  ("flash",), byts, 4.0 * pairs * d * b * h, 0.0,
+                  byts, 4.0 * pairs * d * b * h, 0.0,
                   flop_rate=rate, batch=b)
         del q, k, v, qt, kt, vt
     for case, m, n, bsz, bl, ctoc in PULSE_CASES:
@@ -1711,7 +1823,7 @@ def slice3_kernel_times(results):
                                           ctoc=ctoc),
                   lambda: kp.pulse_update_plain(w, up, dn, bound, rws, cls,
                                                 1, ctoc),
-                  library, ("pulse_update",),
+                  library,
                   4 * (t * (m + n) + 5 * m * n), 0.0, 4.0 * t * m * n,
                   batch=None)
 

@@ -91,7 +91,7 @@ __global__ void __launch_bounds__(THREADS)
   if ((int)blockIdx.x < read_blocks) {  // block-uniform branch
     __shared__ Smem sm;
     const int bx = blockIdx.x % read_tiles_n, by = blockIdx.x / read_tiles_n;
-    managed_tile_block(sm, a, DenseX(), nm, mix32(rseed1), mix32(rseed2),
+    managed_tile_block(sm, a, nm, mix32(rseed1), mix32(rseed2),
                        two_phase, retry_scale, acc1, acc2, sat1, sat2,
                        by * BM, bx * BN);
     return;

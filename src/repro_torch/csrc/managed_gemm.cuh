@@ -1,17 +1,28 @@
-// The product and epilogue of kernel #2 (managed_mvm.cu): a SIMT SGEMM tile
-// for prefill and transposed reads, a gemv for decode reads that runs its
-// own epilogue, and the flag-clearing epilogue launch of the tiled path.
+// The Hopper product of the analog array reads: a SIMT SGEMM tile for
+// prefill, transposed and conv reads, and a gemv walk for decode reads,
+// plus the last-block tickets, the select / rescale / #_d-average epilogue
+// and the flag-clearing epilogue launch of #2's tiled path.
 //
-// The other managed-read kernels (#3 conv_mvm, #6/#7 bwd_update_mvm) and #1
-// noisy_mvm still use the older shared body of analog_read.cuh and
-// managed_read.cuh; only the noise, the read and the managed value come
-// from there, so every kernel reads with the same numbers.
+// Which kernel uses which part:
+//   #2 managed_mvm.cu: Tile (DenseX, 8x8 outputs per thread) with
+//     tile_kernel + finish_kernel (2 launches), and gemv_walk in the
+//     cooperative gemv_kernel below (1).
+//   #1 noisy_mvm.cu: Tile (DenseX; 8x8, or 4x4 for short contractions) and
+//     gemv_walk, with read_value in place of the managed value; each read
+//     one launch.
+//   #3 conv_mvm.cu: Tile (4x4) with the implicit-im2col loader ConvX
+//     (conv_patch.cuh), the select in the block or in the last block of a
+//     row tile; each read one launch.
+// #6/#7 bwd_update_mvm.cu still use the older tile of analog_read.cuh.
+// The noise, read_value and counter of analog_read.cuh and managed_value
+// of managed_read.cuh are shared, so every kernel reads with the same
+// numbers.
 //
-// Flags: the per-row saturation flags sat1/sat2 and a ticket live in a
-// scratch per device and stream that every call leaves zeroed.  The last block to
-// finish (a __threadfence and an atomic ticket) clears them, so no fill
+// Flags: per-row saturation flags and tickets live in a scratch per device
+// and stream that every call leaves zeroed.  The last block to finish (a
+// __threadfence and an atomic ticket) reads and clears them, so no fill
 // launch runs before a read.  One read at a time may use a scratch: the
-// wrapper keeps one per (device, stream) and launches on that stream, whose
+// wrappers keep one per (device, stream) and launch on that stream, whose
 // reads run in order.
 #pragma once
 
@@ -63,15 +74,14 @@ __device__ __forceinline__ void select_rows(
   }
 }
 
-// True in every thread of the block that finished last.  Every thread
-// fences its own writes before the barrier; the winner fences again before
-// it reads what the others wrote.
-__device__ __forceinline__ bool last_block(int* ticket) {
+// True in every thread of the block that arrived last of n at the ticket.
+// Every thread fences its own writes before the barrier; the winner fences
+// again before it reads what the others wrote.
+__device__ __forceinline__ bool last_block(int* ticket, int n) {
   __shared__ int s_last;
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0)
-    s_last = atomicAdd(ticket, 1) == (int)(gridDim.x * gridDim.y) - 1;
+  if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1) == n - 1;
   __syncthreads();
   if (s_last) __threadfence();
   return s_last;
@@ -100,7 +110,7 @@ __global__ void __launch_bounds__(256) finish_kernel(
               two_phase, retry_scale,
               blockIdx.x * (size_t)blockDim.x + threadIdx.x,
               (size_t)gridDim.x * blockDim.x, n_planes);
-  if (last_block(ticket)) clear_flags(ticket, sat1, sat2, B);
+  if (last_block(ticket, gridDim.x)) clear_flags(ticket, sat1, sat2, B);
 }
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
@@ -132,20 +142,25 @@ __device__ __forceinline__ float4 mask4(float4 v, int k0, int ks, int ke) {
 // ---------------------------------------------------------------------------
 //
 // A block computes a BM x BN tile of outputs (rows of x by physical
-// outputs), 8 x 8 per thread: rows ty * 4 + {0..3} and BM/2 + ty * 4 +
-// {0..3}, columns likewise, so per k two float4 loads of x and two of W
-// feed 64 FMAs (a rank-1 update), and the next k's four loads are in
-// flight while this k's FMAs run.  The contraction walks 16-deep k-tiles:
-// a 3-stage cp.async ring copies them as they lie in device memory (two
-// tiles in flight while one is multiplied); each thread then moves the
-// chunks it copied itself into a k-major double buffer (zeroing x outside
-// the segment on the way), so one barrier per k-tile suffices.  k-tiles
-// start at multiples of 16, not at the segment start: x is zero outside the
-// segment, so unaligned segment bounds (wo's seg_len 3670) keep the
-// 16-byte copies, and W outside it is never summed.  Rows of x or W that
-// are not 16-byte aligned (LeNet's 401, 513, 129, 26) take aligned scalar
-// loads into the same ring (VEC false).  Each output's segment sum is one
-// FMA chain in one thread, ascending in k: deterministic, no split-K.
+// outputs), TM x TM per thread.  At TM = 8: rows ty * 4 + {0..3} and BM/2 +
+// ty * 4 + {0..3}, columns likewise, so per k two float4 loads of x and two
+// of W feed 64 FMAs (a rank-1 update); at TM = 4 (the conv read's small
+// tiles: more threads, a shorter chain and epilogue per thread) one float4
+// of each feeds 16.  The next k's loads are in flight while this k's FMAs
+// run.  The contraction walks 16-deep k-tiles: a 3-stage cp.async ring
+// copies them as they lie in device memory (two tiles in flight while one
+// is multiplied); each thread then moves the chunks it copied itself into
+// a k-major double buffer (zeroing x outside the segment on the way), so
+// one barrier per k-tile suffices.  k-tiles start at multiples of 16, not
+// at the segment start: x is zero outside the segment, so unaligned
+// segment bounds (wo's seg_len 3670) keep the 16-byte copies, and W outside
+// it is never summed.  Rows of x or W that are not 16-byte aligned (LeNet's
+// 401, 513, 129, 26) take aligned scalar loads (VEC false) into registers
+// instead of the ring: the next k-tile's loads are issued before this
+// k-tile is multiplied and land in the k-major buffer after it.  x comes
+// through the loader XL: DenseX for a dense x, ConvX (conv_patch.cuh) for
+// patches built by index.  Each output's sum over [ks, ke) is one FMA
+// chain in one thread, ascending in k: deterministic.
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            int bytes) {
@@ -161,25 +176,52 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int BM, int BN, bool VEC, bool TRANS>
+// x loader of the Tile's scalar path for a dense row-major x (B, K): the
+// chunk of row m at columns c.k0..c.k0+3, zero outside the matrix.
+struct DenseX {
+  const float* x;
+  int B, K;
+  struct Cols {
+    int k0;
+  };
+  __device__ __forceinline__ Cols columns(int k0, int) const {
+    return Cols{k0};
+  }
+  __device__ __forceinline__ void load4(int, int m, const Cols& c,
+                                        float* dst) const {
+    const float* src = x + (size_t)m * K + c.k0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dst[e] = (m < B && c.k0 + e < K) ? __ldg(src + e) : 0.0f;
+  }
+};
+
+template <int BM, int BN, bool VEC, bool TRANS, class XL = DenseX,
+          int TM = 8>
 struct Tile {
-  static constexpr int THREADS = (BM / 8) * (BN / 8);
-  static constexpr int TX = BN / 8;
+  static_assert(TM == 4 || TM == 8, "4x4 or 8x8 outputs per thread");
+  static constexpr int H = TM / 4;  // float4 per operand, thread and k
+  static constexpr int THREADS = (BM / TM) * (BN / TM);
+  static constexpr int TX = BN / TM;
   static constexpr int BK = 16, STAGES = 3;
   static constexpr int CX = BM * BK / 4;  // 16-byte chunks of x per k-tile
   static constexpr int CW = BN * BK / 4;  // and of W
   static constexpr int NX = CX / THREADS, NW = CW / THREADS;  // per thread
-  static_assert(NX * THREADS == CX && NW * THREADS == CW, "chunk split");
+  static_assert(NX >= 1 && NW >= 1 && NX * THREADS == CX &&
+                    NW * THREADS == CW,
+                "chunk split");
+  static_assert(THREADS % 32 == 0, "whole warps");  // row flags: shuffles
   static constexpr int RING = (BM + BN) * BK;         // floats per stage
   static constexpr int XLD = BM + 4, WLD = BN + 4;    // k-major rows
   static constexpr int BUF = BK * (XLD + WLD);        // floats per buffer
-  static constexpr size_t SMEM = (STAGES * RING + 2 * BUF) * sizeof(float);
+  static constexpr size_t SMEM =
+      ((VEC ? STAGES * RING : 0) + 2 * BUF) * sizeof(float);
 
   static __device__ __forceinline__ int row(int ty, int i) {
-    return (i < 4 ? 0 : BM / 2) + ty * 4 + (i & 3);
+    return (i / 4) * (BM / H) + ty * 4 + (i & 3);
   }
   static __device__ __forceinline__ int col(int tx, int j) {
-    return (j < 4 ? 0 : BN / 2) + tx * 4 + (j & 3);
+    return (j / 4) * (BN / H) + tx * 4 + (j & 3);
   }
   // chunk c of a k-tile: x chunks are (row, 4 k) with k fastest; W chunks
   // are (output, 4 k) forward and (k, 4 outputs) transposed
@@ -197,7 +239,12 @@ struct Tile {
     }
   }
 
-  // Copy k-tile kb into ring stage st (this thread's chunks only).
+  // This thread's chunks of one k-tile.
+  struct Chunks {
+    float4 x[NX], w[NW];
+  };
+
+  // Copy k-tile kb into ring stage st (VEC: 16-byte cp.async).
   static __device__ __forceinline__ void issue(float* st, const ReadArgs& a,
                                                int m0, int n0, int kb) {
 #pragma unroll
@@ -206,53 +253,82 @@ struct Tile {
       int r, q;
       x_chunk(c, r, q);
       const int m = m0 + r, k0 = kb + q;
-      float* dst = st + c * 4;
-      const float* src = a.x + (size_t)m * a.K + k0;
-      if (VEC) {
-        const bool ok = m < a.B && k0 < a.K;
-        cp_async16(dst, ok ? src : a.x, ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dst[e] = (m < a.B && k0 + e < a.K) ? __ldg(src + e) : 0.0f;
-      }
+      const bool ok = m < a.B && k0 < a.K;
+      cp_async16(st + c * 4, ok ? a.x + (size_t)m * a.K + k0 : a.x,
+                 ok ? 16 : 0);
     }
 #pragma unroll
     for (int l = 0; l < NW; ++l) {
       const int c = threadIdx.x + l * THREADS;
       int r, q;
       w_chunk(c, r, q);
-      float* dst = st + CX * 4 + c * 4;
       const int o = TRANS ? n0 + q : n0 + r, k0 = TRANS ? kb + r : kb + q;
-      const float* src = TRANS ? a.w + (size_t)k0 * a.out_dim + o
-                               : a.w + (size_t)o * a.K + k0;
-      if (VEC) {
-        const bool ok = o < a.out_dim && k0 < a.K;
-        cp_async16(dst, ok ? src : a.w, ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool ok = TRANS ? (k0 < a.K && o + e < a.out_dim)
-                                : (o < a.out_dim && k0 + e < a.K);
-          dst[e] = ok ? __ldg(src + e) : 0.0f;
-        }
-      }
+      const bool ok = o < a.out_dim && k0 < a.K;
+      cp_async16(st + CX * 4 + c * 4,
+                 ok ? (TRANS ? a.w + (size_t)k0 * a.out_dim + o
+                             : a.w + (size_t)o * a.K + k0)
+                    : a.w,
+                 ok ? 16 : 0);
     }
   }
 
-  // Move this thread's chunks of ring stage st into the k-major buffer
-  // buf, x zeroed outside the segment [ks, ke).
-  static __device__ __forceinline__ void transpose(const float* st,
-                                                   float* buf, int kb,
-                                                   int ks, int ke) {
+  // This thread's chunks of ring stage st.
+  static __device__ __forceinline__ void staged(Chunks& ch, const float* st) {
+#pragma unroll
+    for (int l = 0; l < NX; ++l)
+      ch.x[l] = *reinterpret_cast<const float4*>(
+          st + (threadIdx.x + l * THREADS) * 4);
+#pragma unroll
+    for (int l = 0; l < NW; ++l)
+      ch.w[l] = *reinterpret_cast<const float4*>(
+          st + CX * 4 + (threadIdx.x + l * THREADS) * 4);
+  }
+
+  // Load this thread's chunks of k-tile kb into registers (scalar path).
+  // Every x chunk of a thread starts at the same k (THREADS is a multiple
+  // of BK / 4), so the loader resolves the columns once per k-tile.
+  static __device__ __forceinline__ void fetch(Chunks& ch, const ReadArgs& a,
+                                               int m0, int n0, int kb,
+                                               const XL& xl) {
+    const typename XL::Cols cols =
+        xl.columns(kb + (threadIdx.x % (BK / 4)) * 4, a.K);
+#pragma unroll
+    for (int l = 0; l < NX; ++l) {
+      int r, q;
+      x_chunk(threadIdx.x + l * THREADS, r, q);
+      float v[4];
+      xl.load4(l, m0 + r, cols, v);
+      ch.x[l] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+#pragma unroll
+    for (int l = 0; l < NW; ++l) {
+      int r, q;
+      w_chunk(threadIdx.x + l * THREADS, r, q);
+      const int o = TRANS ? n0 + q : n0 + r, k0 = TRANS ? kb + r : kb + q;
+      const float* src = TRANS ? a.w + (size_t)k0 * a.out_dim + o
+                               : a.w + (size_t)o * a.K + k0;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = TRANS ? (k0 < a.K && o + e < a.out_dim)
+                              : (o < a.out_dim && k0 + e < a.K);
+        v[e] = ok ? __ldg(src + e) : 0.0f;
+      }
+      ch.w[l] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+
+  // Move this thread's chunks of k-tile kb into the k-major buffer buf, x
+  // zeroed outside the segment [ks, ke).
+  static __device__ __forceinline__ void put(const Chunks& ch, float* buf,
+                                             int kb, int ks, int ke) {
     float* xs = buf;
     float* ws = buf + BK * XLD;
 #pragma unroll
     for (int l = 0; l < NX; ++l) {
-      const int c = threadIdx.x + l * THREADS;
       int r, q;
-      x_chunk(c, r, q);
-      float4 v = *reinterpret_cast<const float4*>(st + c * 4);
+      x_chunk(threadIdx.x + l * THREADS, r, q);
+      float4 v = ch.x[l];
       const int k0 = kb + q;  // branch-free: every tile, not just the ends
       v.x = (k0 >= ks && k0 < ke) ? v.x : 0.0f;
       v.y = (k0 + 1 >= ks && k0 + 1 < ke) ? v.y : 0.0f;
@@ -265,10 +341,9 @@ struct Tile {
     }
 #pragma unroll
     for (int l = 0; l < NW; ++l) {
-      const int c = threadIdx.x + l * THREADS;
       int r, q;
-      w_chunk(c, r, q);
-      const float4 v = *reinterpret_cast<const float4*>(st + CX * 4 + c * 4);
+      w_chunk(threadIdx.x + l * THREADS, r, q);
+      const float4 v = ch.w[l];
       if (TRANS) {
         *reinterpret_cast<float4*>(ws + r * WLD + q) = v;
       } else {
@@ -280,64 +355,95 @@ struct Tile {
     }
   }
 
-  // 16 rank-1 updates of this thread's 8 x 8 outputs from buffer buf.
+  // 16 rank-1 updates of this thread's TM x TM outputs from buffer buf.
   static __device__ __forceinline__ void multiply(const float* buf, int tx,
                                                   int ty,
-                                                  float (&acc)[8][8]) {
+                                                  float (&acc)[TM][TM]) {
     const float* xs = buf + ty * 4;
     const float* ws = buf + BK * XLD + tx * 4;
-    float4 xa[2][2], wb[2][2];  // [k parity][half]
+    float4 xa[2][H], wb[2][H];  // [k parity][part]
     auto frag = [&](int k, int p) {
-      xa[p][0] = *reinterpret_cast<const float4*>(xs + k * XLD);
-      xa[p][1] = *reinterpret_cast<const float4*>(xs + k * XLD + BM / 2);
-      wb[p][0] = *reinterpret_cast<const float4*>(ws + k * WLD);
-      wb[p][1] = *reinterpret_cast<const float4*>(ws + k * WLD + BN / 2);
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        xa[p][h] =
+            *reinterpret_cast<const float4*>(xs + k * XLD + h * (BM / H));
+        wb[p][h] =
+            *reinterpret_cast<const float4*>(ws + k * WLD + h * (BN / H));
+      }
     };
     frag(0, 0);
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
       const int p = k & 1;
       if (k + 1 < BK) frag(k + 1, p ^ 1);
-      const float av[8] = {xa[p][0].x, xa[p][0].y, xa[p][0].z, xa[p][0].w,
-                           xa[p][1].x, xa[p][1].y, xa[p][1].z, xa[p][1].w};
-      const float bv[8] = {wb[p][0].x, wb[p][0].y, wb[p][0].z, wb[p][0].w,
-                           wb[p][1].x, wb[p][1].y, wb[p][1].z, wb[p][1].w};
+      float av[TM], bv[TM];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int h = 0; h < H; ++h) {
+        av[4 * h] = xa[p][h].x;
+        av[4 * h + 1] = xa[p][h].y;
+        av[4 * h + 2] = xa[p][h].z;
+        av[4 * h + 3] = xa[p][h].w;
+        bv[4 * h] = wb[p][h].x;
+        bv[4 * h + 1] = wb[p][h].y;
+        bv[4 * h + 2] = wb[p][h].z;
+        bv[4 * h + 3] = wb[p][h].w;
+      }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
   }
 
-  // The segment [ks, ke) of this thread's 8 x 8 outputs into acc.
+  // The contraction [ks, ke) of this thread's TM x TM outputs into acc.
   static __device__ __forceinline__ void segment(float* smem,
                                                  const ReadArgs& a, int m0,
                                                  int n0, int ks, int ke,
-                                                 float (&acc)[8][8]) {
+                                                 float (&acc)[TM][TM]) {
+    segment(smem, a, m0, n0, ks, ke, acc, DenseX{a.x, a.B, a.K});
+  }
+  static __device__ __forceinline__ void segment(float* smem,
+                                                 const ReadArgs& a, int m0,
+                                                 int n0, int ks, int ke,
+                                                 float (&acc)[TM][TM],
+                                                 const XL& xl) {
     const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-    float* ring = smem;
-    float* bufs = smem + STAGES * RING;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+      for (int j = 0; j < TM; ++j) acc[i][j] = 0.0f;
     const int kb0 = ks - ks % BK;
     const int nt = (ke - kb0 + BK - 1) / BK;
+    Chunks ch;
+    if (VEC) {
+      float* ring = smem;
+      float* bufs = smem + STAGES * RING;
 #pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < nt) issue(ring + s * RING, a, m0, n0, kb0 + s * BK);
-      cp_commit();
-    }
-    for (int t = 0; t < nt; ++t) {
-      cp_wait<STAGES - 2>();  // this thread's copies of tile t landed
-      float* buf = bufs + (t & 1) * BUF;
-      transpose(ring + (t % STAGES) * RING, buf, kb0 + t * BK, ks, ke);
-      __syncthreads();  // buffer t complete; tile t - 1's multiply done
-      const int tn = t + STAGES - 1;
-      if (tn < nt)
-        issue(ring + (tn % STAGES) * RING, a, m0, n0, kb0 + tn * BK);
-      cp_commit();
-      multiply(buf, tx, ty, acc);
+      for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < nt) issue(ring + s * RING, a, m0, n0, kb0 + s * BK);
+        cp_commit();
+      }
+      for (int t = 0; t < nt; ++t) {
+        cp_wait<STAGES - 2>();  // this thread's copies of tile t landed
+        float* buf = bufs + (t & 1) * BUF;
+        staged(ch, ring + (t % STAGES) * RING);
+        put(ch, buf, kb0 + t * BK, ks, ke);
+        __syncthreads();  // buffer t complete; tile t - 1's multiply done
+        const int tn = t + STAGES - 1;
+        if (tn < nt)
+          issue(ring + (tn % STAGES) * RING, a, m0, n0, kb0 + tn * BK);
+        cp_commit();
+        multiply(buf, tx, ty, acc);
+      }
+    } else {
+      if (nt > 0) fetch(ch, a, m0, n0, kb0, xl);
+      for (int t = 0; t < nt; ++t) {
+        float* buf = smem + (t & 1) * BUF;
+        put(ch, buf, kb0 + t * BK, ks, ke);
+        __syncthreads();  // buffer t complete; tile t - 1's multiply done
+        if (t + 1 < nt) fetch(ch, a, m0, n0, kb0 + (t + 1) * BK, xl);
+        multiply(buf, tx, ty, acc);
+      }
     }
   }
 };
@@ -405,42 +511,47 @@ __global__ void __launch_bounds__((BM / 8) * (BN / 8), 2)
 // Decode path: forward reads with B <= 8, one launch per read
 // ---------------------------------------------------------------------------
 //
-// A cooperative launch of as many 8-warp blocks as fit on the card at once;
-// each warp walks column groups of NCW outputs (grid-stride).  Lanes lie
-// along the contraction: per step a lane holds U float4 of W for each of
-// its NCW columns (8 float4 in all), and the next step's 8 are in flight
-// while this step is multiplied; W bypasses L1, so the B rows of x stay
-// there for every warp of the SM, and one load of x feeds 4 NCW FMAs.  No
-// barrier stalls the stream of W.
+// Blocks of 8 warps; each warp walks column groups of NCW outputs
+// (grid-stride).  Lanes lie along the contraction: per step a lane holds U
+// float4 of W for each of its NCW columns (8 float4 in all), and the next
+// step's 8 are in flight while this step is multiplied; W bypasses L1, so
+// the B rows of x stay there for every warp of the SM, and one load of x
+// feeds 4 NCW FMAs.  No barrier stalls the stream of W.
 // Quads start at multiples of 4 and x is zero outside the segment, so an
 // unaligned segment bound (seg_len 3670) keeps the vector loads.  A
 // butterfly reduces each (column, row) sum at the segment end; lane
-// c * 8 + b reads the pair.  After a grid-wide barrier every block selects
-// its share of the outputs, and the last block to finish clears the flags.
+// c * 8 + b reads the pair.  What a read does with the sums is its reader
+// RD: rd.begin(ok, b, o) at each group (ok: this lane owns column o, row
+// b), rd.segment(si, v) at each segment end and rd.end() after the last,
+// in every lane (v is meaningful where ok).
 
 constexpr int GEMV_MAXB = 8;
 constexpr int GW = 8;  // warps per block
 
-template <int NCW, bool VEC>
-__global__ void __launch_bounds__(GW * 32) gemv_kernel(
-    ReadArgs a, const float* __restrict__ nm, uint32_t seed1, uint32_t seed2,
-    int two_phase, float retry_scale, float* acc1, float* acc2, int* sat1,
-    int* sat2, int* ticket, float* __restrict__ y,
-    uint8_t* __restrict__ residual, int d_avg) {
+// Blocks of GW warps of a kernel that fit on the card at once (0 when the
+// runtime cannot say).
+inline int resident_blocks(const void* kern) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, GW * 32,
+                                                    0) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
+template <int NCW, bool VEC, class RD>
+__device__ __forceinline__ void gemv_walk(const ReadArgs& a, RD& rd) {
   constexpr int U = 8 / NCW;  // float4 of W per column and step
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int B = a.B;
   const int myc = lane >> 3, myb = lane & 7;
-  const uint32_t seed1_m = mix32(seed1), seed2_m = mix32(seed2);
   const int n_groups = (a.out_dim + NCW - 1) / NCW;
-  uint32_t r1 = 0, r2 = 0;  // ballots of saturated (column, row) lanes
   for (int grp = blockIdx.x * GW + warp; grp < n_groups;
        grp += gridDim.x * GW) {
     const int o0 = grp * NCW;
-    const bool mine_ok = myc < NCW && myb < B && o0 + myc < a.out_dim;
-    const float s = mine_ok ? nm[myb] : 1.0f;
-    float y1 = 0.0f, y2 = 0.0f;
-    bool fl1 = false, fl2 = false;
+    rd.begin(myc < NCW && myb < B && o0 + myc < a.out_dim, myb, o0 + myc);
     for (int si = 0; si < a.n_seg; ++si) {
       const int ks = si * a.seg_len;
       const int ke = min(a.K, ks + a.seg_len);
@@ -497,24 +608,32 @@ __global__ void __launch_bounds__(GW * 32) gemv_kernel(
           }
         }
       } else {
-        for (int kb = ks + lane; kb < ke; kb += 32 * 4 * U) {
+        // scalar loads (rows not 16-byte aligned): 4 steps of 32 columns,
+        // all their loads issued before their FMAs
+        for (int kb = ks + lane; kb < ke; kb += 32 * 4) {
+          float wv[4][NCW], xv[4][GEMV_MAXB];
 #pragma unroll
-          for (int u = 0; u < 4 * U; ++u) {
+          for (int u = 0; u < 4; ++u) {
             const int k = kb + 32 * u;
-            if (k >= ke) break;
-            float wv[NCW];
 #pragma unroll
             for (int c = 0; c < NCW; ++c)
-              wv[c] = o0 + c < a.out_dim
-                          ? __ldg(a.w + (size_t)(o0 + c) * a.K + k)
-                          : 0.0f;
+              wv[u][c] = k < ke && o0 + c < a.out_dim
+                             ? __ldg(a.w + (size_t)(o0 + c) * a.K + k)
+                             : 0.0f;
+#pragma unroll
+            for (int b = 0; b < GEMV_MAXB; ++b)
+              xv[u][b] = k < ke && b < B ? __ldg(a.x + (size_t)b * a.K + k)
+                                         : 0.0f;
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (kb + 32 * u >= ke) break;
 #pragma unroll
             for (int b = 0; b < GEMV_MAXB; ++b) {
               if (b >= B) break;
-              const float xv = __ldg(a.x + (size_t)b * a.K + k);
 #pragma unroll
               for (int c = 0; c < NCW; ++c)
-                acc[c][b] = fmaf(xv, wv[c], acc[c][b]);
+                acc[c][b] = fmaf(xv[u][b], wv[u][c], acc[c][b]);
             }
           }
         }
@@ -531,32 +650,82 @@ __global__ void __launch_bounds__(GW * 32) gemv_kernel(
             v += __shfl_xor_sync(0xffffffffu, v, off);
           if (lane == c * 8 + b) mine = v;
         }
-      if (mine_ok)
-        managed_value(a, mine, s, seed1_m, seed2_m, two_phase, retry_scale,
-                      counter(a, myb, si, o0 + myc), y1, y2, fl1, fl2);
+      rd.segment(si, mine);
     }
-    if (mine_ok) {
-      const size_t i = (size_t)myb * a.out_dim + o0 + myc;
+    rd.end();
+  }
+}
+
+// Rows whose lanes raised a ballot: lane c * 8 + b holds row b, so fold the
+// ballot onto the low 8 bits.
+__device__ __forceinline__ uint32_t ballot_rows(uint32_t r) {
+  return r | (r >> 8) | (r >> 16) | (r >> 24);
+}
+
+// #2's reader: both two-phase reads of each segment sum into (y1, y2),
+// the partials to acc1/acc2 and ballots of the saturated lanes.
+struct ManagedGemvRead {
+  const ReadArgs& a;
+  const float* __restrict__ nm;
+  uint32_t seed1_m, seed2_m;
+  int two_phase;
+  float retry_scale;
+  float* acc1;
+  float* acc2;
+  uint32_t r1 = 0, r2 = 0;
+  bool ok = false, fl1 = false, fl2 = false;
+  int b = 0, o = 0;
+  float s = 1.0f, y1 = 0.0f, y2 = 0.0f;
+
+  __device__ __forceinline__ void begin(bool ok_, int b_, int o_) {
+    ok = ok_;
+    b = b_;
+    o = o_;
+    s = ok ? nm[b] : 1.0f;
+    y1 = y2 = 0.0f;
+    fl1 = fl2 = false;
+  }
+  __device__ __forceinline__ void segment(int si, float v) {
+    if (ok)
+      managed_value(a, v, s, seed1_m, seed2_m, two_phase, retry_scale,
+                    counter(a, b, si, o), y1, y2, fl1, fl2);
+  }
+  __device__ __forceinline__ void end() {
+    if (ok) {
+      const size_t i = (size_t)b * a.out_dim + o;
       acc1[i] = y1;
       if (two_phase) acc2[i] = y2;
     }
-    r1 |= __ballot_sync(0xffffffffu, mine_ok && fl1);
-    r2 |= __ballot_sync(0xffffffffu, mine_ok && fl2);
+    r1 |= __ballot_sync(0xffffffffu, ok && fl1);
+    r2 |= __ballot_sync(0xffffffffu, ok && fl2);
   }
-  // lane c * 8 + b holds row b: fold the ballots onto the low 8 bits
-  r1 |= (r1 >> 8) | (r1 >> 16) | (r1 >> 24);
-  r2 |= (r2 >> 8) | (r2 >> 16) | (r2 >> 24);
-  if (lane < B) {
+};
+
+// #2's decode read: a cooperative launch of as many blocks as fit on the
+// card at once.  After a grid-wide barrier every block selects its share of
+// the outputs, and the last block to finish clears the flags.
+template <int NCW, bool VEC>
+__global__ void __launch_bounds__(GW * 32) gemv_kernel(
+    ReadArgs a, const float* __restrict__ nm, uint32_t seed1, uint32_t seed2,
+    int two_phase, float retry_scale, float* acc1, float* acc2, int* sat1,
+    int* sat2, int* ticket, float* __restrict__ y,
+    uint8_t* __restrict__ residual, int d_avg) {
+  const int lane = threadIdx.x & 31;
+  ManagedGemvRead rd{a,         nm,   mix32(seed1), mix32(seed2),
+                     two_phase, retry_scale, acc1, acc2};
+  gemv_walk<NCW, VEC>(a, rd);
+  const uint32_t r1 = ballot_rows(rd.r1), r2 = ballot_rows(rd.r2);
+  if (lane < a.B) {
     if ((r1 >> lane) & 1) atomicOr(&sat1[lane], 1);
     if ((r2 >> lane) & 1) atomicOr(&sat2[lane], 1);
   }
   __threadfence();
   cooperative_groups::this_grid().sync();
-  select_rows(acc1, acc2, sat1, sat2, nm, y, residual, B,
+  select_rows(acc1, acc2, sat1, sat2, nm, y, residual, a.B,
               a.out_dim / d_avg, d_avg, two_phase, retry_scale,
               blockIdx.x * (size_t)blockDim.x + threadIdx.x,
               (size_t)gridDim.x * blockDim.x);
-  if (last_block(ticket)) clear_flags(ticket, sat1, sat2, B);
+  if (last_block(ticket, gridDim.x)) clear_flags(ticket, sat1, sat2, a.B);
 }
 
 }  // namespace gemm

@@ -63,19 +63,6 @@ int launch_tile_v(const ReadArgs& a, int vec, const float* nm, uint32_t s1,
                            a, nm, s1, s2, tp, rs, acc1, acc2, sat1, sat2, s);
 }
 
-// Blocks of a kernel that fit on the card at once (a cooperative launch
-// must not ask for more).
-int resident_blocks(const void* kern) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, g::GW * 32,
-                                                    0) != cudaSuccess)
-    return 0;
-  return sms * per_sm;
-}
-
 template <int NCW, bool VEC>
 int launch_gemv(ReadArgs a, const float* nm, uint32_t s1, uint32_t s2, int tp,
                 float rs, float* acc1, float* acc2, int* sat1, int* sat2,
@@ -86,7 +73,7 @@ int launch_gemv(ReadArgs a, const float* nm, uint32_t s1, uint32_t s2, int tp,
   static const cudaError_t carve = cudaFuncSetAttribute(
       kern, cudaFuncAttributePreferredSharedMemoryCarveout, 0);
   if (carve != cudaSuccess) return static_cast<int>(carve);
-  static const int fit = resident_blocks(kern);  // per instantiation
+  static const int fit = g::resident_blocks(kern);  // per instantiation
   if (fit <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int want = (a.out_dim + g::GW * NCW - 1) / (g::GW * NCW);
   const int blocks = want < fit ? want : fit;

@@ -1,8 +1,9 @@
-// The managed read of the older shared body (conv_mvm.cu and
-// bwd_update_mvm.cu): both two-phase BM reads from one tiled product, the
-// per-row saturation flags ORed across blocks, and the select / rescale /
-// #_d-average epilogue launch.  managed_mvm.cu takes only managed_value
-// from here (its own product and epilogue: managed_gemm.cuh).
+// The managed value (both two-phase BM reads of one segment sum), used by
+// every managed read: #2 managed_mvm.cu and #3 conv_mvm.cu through
+// managed_gemm.cuh's product, and #6/#7 bwd_update_mvm.cu, whose transpose
+// read still runs the older tile of analog_read.cuh through
+// managed_tile_block below (per-row saturation flags ORed across blocks)
+// and the select / rescale / #_d-average epilogue launch.
 //
 //     v   = W_seg x_seg / s                         (s: NM scale, per row)
 //     y1  = sum_seg clip(v       + sigma * xi1, +-alpha)       (seed 1)
@@ -28,11 +29,10 @@ __device__ __forceinline__ void managed_value(
 }
 
 // One 64 x 64 output tile (rows m0.., physical outputs n0..) of a managed
-// read through the tiled product: writes the acc1/acc2 partials and ORs the
-// per-row flags with atomics.  xl loads the input element x(m, k).
-template <class XL>
+// read through the older tiled product: writes the acc1/acc2 partials and
+// ORs the per-row flags with atomics.
 __device__ __forceinline__ void managed_tile_block(
-    Smem& sm, const ReadArgs& a, const XL& xl, const float* __restrict__ nm,
+    Smem& sm, const ReadArgs& a, const float* __restrict__ nm,
     uint32_t seed1_m, uint32_t seed2_m, int two_phase, float retry_scale,
     float* __restrict__ acc1, float* __restrict__ acc2,
     int* __restrict__ sat1, int* __restrict__ sat2, int m0, int n0) {
@@ -48,7 +48,7 @@ __device__ __forceinline__ void managed_tile_block(
   for (int si = 0; si < a.n_seg; ++si) {
     const int ks = si * a.seg_len;
     const int ke = min(a.K, ks + a.seg_len);
-    segment_product(sm, a, m0, n0, ks, ke, seg, xl);
+    segment_product(sm, a, m0, n0, ks, ke, seg);
 #pragma unroll
     for (int o = 0; o < OWN; ++o) {
       int mm, nn;

@@ -3,12 +3,16 @@ managed read of a conv layer's crossbar, without an im2col matrix.
 
 Replaces the TPU kernel ``conv_managed_mvm_pallas`` (``src/repro/kernels/
 conv_mvm.py:157``, ``pallas_call`` at :198) with the CUDA kernel
-``csrc/conv_mvm.cu``: the 64 x 64 tiled managed read over the flattened
-position axis, its loader building each patch element by index from the
-padded activation volume, the channel-major weights read directly, and the
-shared select/average epilogue (two launches).  Noise counters are those of
-the materialized column matrix, ``(img * OH*OW + pos) * out_phys + o``.
-Bound: launches, at LeNet's shapes (see the source's header note).
+``csrc/conv_mvm.cu``: the managed read's SIMT tile (``csrc/managed_gemm.cuh``)
+over the flattened position axis, its loader building each patch element
+by index from the padded activation volume, the channel-major weights read
+directly, one launch per read.  :func:`plan` takes a tile as wide as the
+physical outputs where one block can hold them all (K1's 16, K2's 32): the
+block then runs the select / average itself.  Wider arrays (K2 with 13
+devices per weight, 416) take 64x128 tiles, and the last block of each row
+block runs the select for its rows.  Noise counters are those of the
+materialized column matrix, ``(img * OH*OW + pos) * out_phys + o``.
+Bound: the launch, at LeNet's shapes (see the source's header note).
 
 :func:`conv_managed_mvm` launches it for CUDA tensors and runs
 :func:`conv_managed_mvm_plain` — the TPU kernel's tap-major patch and weight
@@ -20,12 +24,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import management
 from repro_torch.kernels import build
+from repro_torch.kernels.gemm import SMS, scratch
 from repro_torch.kernels.managed_mvm import managed_mvm_plain
 from repro_torch.kernels.noisy_mvm import check_operands
 
@@ -39,8 +44,9 @@ def conv_kernel_eligible(cfg, geom, w_shape: Tuple[int, int]) -> bool:
     """True when the implicit-im2col kernel takes the conv forward: kernels
     on, fixed-latency BM (off / two-phase), no tile grid, and one physical
     contraction segment.  The TPU kernel also gates on 8 MB of VMEM for a
-    whole image; the CUDA kernel stages fixed 64 x 64 tiles (8.5 KB of
-    shared memory) whatever the shape, so it has no size gate."""
+    whole image; the CUDA kernel stages fixed tiles of 16-deep k-slices
+    (at most 33 KB of shared memory) whatever the shape, so it has no
+    size gate."""
     if not cfg.use_pallas:
         return False
     if cfg.tile_grid is not None and tuple(cfg.tile_grid) != (1, 1):
@@ -88,20 +94,62 @@ def conv_managed_mvm_plain(w: torch.Tensor, xpad: torch.Tensor, geom,
         retry_scale=retry_scale, d_avg=d_avg)
 
 
+class Plan(NamedTuple):
+    """The kernel's tile (tile_m positions x tile_n physical outputs, 4x4
+    outputs per thread); ``one``: a block holds every physical output of
+    its positions and runs the select itself; ``parts``: the contraction in
+    that many ordered parts, blocks of their own."""
+    tile_m: int
+    tile_n: int
+    one: bool
+    parts: int
+
+
+#: Tiles whose block holds every physical output (out_phys <= tile_n), the
+#: narrowest that fits first; wider arrays take CROSS_TILE.
+ONE_TILES = ((64, 16), (32, 32), (64, 64))
+CROSS_TILE = (32, 32)
+#: Blocks the parts aim for (four per SM: the tiles are small), the most
+#: parts and the least depth of a part (8 k-tiles of 16: shallower parts
+#: made K2's reads slower on an H100, the last block adding more planes).
+PARTS_TARGET, MAX_PARTS, MIN_PART_DEPTH = 4 * SMS, 8, 128
+
+
+def plan(out_phys: int, k_dim: int, positions: int) -> Plan:
+    """The narrowest tile that holds ``out_phys`` physical outputs in one
+    block, else CROSS_TILE with the select in the last block of each row
+    tile; the contraction of ``k_dim`` split into the fewest parts that
+    give the card PARTS_TARGET blocks, at most MAX_PARTS, each at least
+    MIN_PART_DEPTH deep."""
+    tile = next(((tm, tn, True) for tm, tn in ONE_TILES if out_phys <= tn),
+                (*CROSS_TILE, False))
+    tiles = -(-positions // tile[0]) * -(-out_phys // tile[1])
+    parts = max(1, min(-(-PARTS_TARGET // tiles), MAX_PARTS,
+                       k_dim // MIN_PART_DEPTH))
+    return Plan(*tile, parts)
+
+
+_GEOMS: Dict[object, "ctypes.Array"] = {}
+
+
 def geom_array(geom) -> "ctypes.Array":
     """The geometry as the kernels' host int array (B, H, W, C, kh, kw, sh,
-    sw, dh, dw, oh, ow, bias)."""
-    vals = (geom.b, geom.h, geom.w, geom.c, geom.kh, geom.kw, geom.sh,
-            geom.sw, geom.dh, geom.dw, geom.oh, geom.ow, int(geom.bias))
-    return (ctypes.c_int * len(vals))(*vals)
+    sw, dh, dw, oh, ow, bias), made once per geometry."""
+    arr = _GEOMS.get(geom)
+    if arr is None:
+        vals = (geom.b, geom.h, geom.w, geom.c, geom.kh, geom.kw, geom.sh,
+                geom.sw, geom.dh, geom.dw, geom.oh, geom.ow, int(geom.bias))
+        arr = _GEOMS[geom] = (ctypes.c_int * len(vals))(*vals)
+    return arr
 
 
 def _lib():
     fn = build.load("conv_mvm").conv_managed_mvm_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
-            ctypes.c_uint32, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_uint32, ctypes.c_int, ctypes.c_float] + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -128,24 +176,32 @@ def conv_managed_mvm(w: torch.Tensor, xpad: torch.Tensor, geom,
             w, xpad, geom, nm_s, seeds, sigma=sigma, alpha=alpha,
             two_phase=two_phase, retry_scale=retry_scale, d_avg=d_avg)
     p = geom.positions
-    nm = nm_s.reshape(p)
-    check_operands(w, xpad, nm)
+    if nm_s.numel() != p:
+        raise ValueError(f"nm_s {tuple(nm_s.shape)} is not one scale per "
+                         f"position ({p})")
+    check_operands(w, xpad, nm_s)
     dev = w.device
     y = torch.empty(p, out_phys // d_avg, dtype=torch.float32, device=dev)
-    residual = torch.empty(p, dtype=torch.int32, device=dev)
-    acc1 = torch.empty(p, out_phys, dtype=torch.float32, device=dev)
-    acc2 = torch.empty_like(acc1) if two_phase else acc1
-    flags = torch.empty(2, p, dtype=torch.int32, device=dev)
-    g = geom_array(geom)                  # host ints, read during the call
+    residual = torch.empty(p, dtype=torch.bool, device=dev)
+    tp = plan(out_phys, geom.cols, p)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    flags = part = 0
+    if not tp.one or tp.parts > 1:
+        n = p * out_phys
+        row_tiles = -(-p // tp.tile_m)
+        tiles = row_tiles * -(-out_phys // tp.tile_n)
+        fl, pt = scratch(dev, stream, 4 + 2 * p + row_tiles + tiles,
+                         ((2 if two_phase else 1)
+                          + (tp.parts if tp.parts > 1 else 0)) * n)
+        flags, part = fl.data_ptr(), pt.data_ptr()
     rc = _lib()(
-        w.data_ptr(), xpad.data_ptr(), ctypes.addressof(g),
-        nm.data_ptr(), y.data_ptr(), residual.data_ptr(), acc1.data_ptr(),
-        acc2.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
+        w.data_ptr(), xpad.data_ptr(), ctypes.addressof(geom_array(geom)),
+        nm_s.data_ptr(), y.data_ptr(), residual.data_ptr(), part, flags,
         out_phys, d_avg, float(sigma), float(alpha),
         int(math.isfinite(alpha)), int(seeds[0]) & _M32,
         int(seeds[1]) & _M32, int(two_phase), float(retry_scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+        tp.tile_m, tp.tile_n, int(tp.one), tp.parts, stream)
     if rc != 0:
         raise RuntimeError(f"conv_mvm kernel launch failed: CUDA error {rc}")
     launches += 1
-    return y, residual != 0
+    return y, residual

@@ -28,11 +28,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.gemm import (  # noqa: F401 (the plan's constants)
+    GEMV_MAXB, SMS, TILES, scratch, tile_shape, vec_rows)
 from repro_torch.kernels.noisy_mvm import (
     check_operands, counters, read_segment, segment_product, segments)
 from repro_torch.utils import fastrng
@@ -104,12 +106,6 @@ def managed_mvm_plain(w: torch.Tensor, x2d: torch.Tensor, nm_s: torch.Tensor,
                               d_avg=d_avg)
 
 
-#: Streaming multiprocessors of the H100 (the grid the tile plan fills).
-SMS = 132
-#: Largest batch the decode (gemv) path takes.
-GEMV_MAXB = 8
-
-
 class Plan(NamedTuple):
     """How the kernel runs one read: ``path`` "gemv" (one launch) or
     "tile" (tile_m x tile_n tiles, then the epilogue launch); ``ncw``
@@ -120,10 +116,6 @@ class Plan(NamedTuple):
     tile_n: int
     ncw: int
     vec: bool
-
-
-#: Tile shapes of the tiled path, largest first.
-TILES = ((128, 128), (64, 128))
 
 
 def plan(b: int, k_dim: int, out_phys: int, transpose: bool,
@@ -137,40 +129,17 @@ def plan(b: int, k_dim: int, out_phys: int, transpose: bool,
     blocks per SM).  The tiled path runs a block per tile and segment,
     and takes 128x128 tiles where they give every SM a block, else 64x128
     (8x8 outputs per thread leave few threads at small batch)."""
-    vec = (aligned and k_dim % 4 == 0
-           and (out_phys % 4 == 0 or not transpose))
+    vec = vec_rows(aligned, k_dim, out_phys, transpose)
     if not transpose and b <= GEMV_MAXB:
         ncw = 2 if out_phys >= 4096 else 1
         return Plan("gemv", 0, 0, ncw, vec)
-    for tm, tn in TILES:
-        if -(-b // tm) * -(-out_phys // tn) * n_seg >= SMS:
-            break
-    return Plan("tile", tm, tn, 0, vec)
+    return Plan("tile", *tile_shape(b, out_phys, n_seg), 0, vec)
 
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
     ctypes.c_uint32, ctypes.c_int, ctypes.c_float, ctypes.c_uint32,
     ctypes.c_uint32] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-
-# per (device, stream): int32 flag scratch (zero between calls) and the
-# gemv's f32 partials, grown on demand.  Reads on one stream run in order,
-# so they can share one; reads on two streams must not.
-_SCRATCH: Dict[Tuple[torch.device, int],
-               Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def _scratch(dev: torch.device, stream: int, b: int, floats: int
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    flags, part = _SCRATCH.get((dev, stream), (None, None))
-    if flags is None or flags.numel() < 4 + 2 * b:
-        cap = max(b, GEMV_MAXB)
-        flags = torch.zeros(4 + 2 * cap, dtype=torch.int32, device=dev)
-    if part is None or part.numel() < floats:
-        part = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
-    _SCRATCH[(dev, stream)] = (flags, part)
-    return flags, part
-
 
 def _lib():
     lib = build.load("managed_mvm")
@@ -220,8 +189,8 @@ def managed_mvm(w: torch.Tensor, x2d: torch.Tensor, nm_s: torch.Tensor,
              w.data_ptr() % 16 == 0 and x2d.data_ptr() % 16 == 0, n_seg)
     n_acc = b * out_phys
     stream = torch.cuda.current_stream(dev).cuda_stream
-    flags, part = _scratch(dev, stream, b,
-                           2 * n_acc if p.path == "gemv" else 0)
+    flags, part = scratch(dev, stream, 4 + 2 * b,
+                          2 * n_acc if p.path == "gemv" else 0)
     if p.path == "gemv":
         acc1, acc2 = part, part[n_acc:]
     else:

@@ -3,26 +3,38 @@ sigma * xi, +-alpha)`` with a per-row saturation flag.
 
 Replaces the TPU kernel ``noisy_mvm_pallas`` (``src/repro/kernels/
 noisy_mvm.py:127``, ``pallas_call`` at :197) with the CUDA kernel
-``csrc/noisy_mvm.cu``: one block per (row-block, out-block) walks the whole
-contraction in a loop, adding counter-hash noise, the saturation flag and
-the integrator clip at every contraction-segment boundary.  It is bound by
-the bytes of W at decode batch sizes and by fp32 FMAs at prefill (see the
-source's header note).
+``csrc/noisy_mvm.cu``, which runs on the managed read's product
+(``csrc/managed_gemm.cuh``) with the raw read in place of the managed one,
+one launch per read.  :func:`plan` picks its path from the shapes:
 
-:func:`noisy_mvm` launches the kernel for CUDA tensors and runs
-:func:`noisy_mvm_plain`, the same function in plain PyTorch, only for CPU
-tensors.  ``launches`` counts kernel launches.
+* decode (forward, B <= 8): a gemv streams W with float4 loads (x through
+  L1); a warp owns whole columns over every segment, so it adds the noise,
+  clips and writes y.  Bound: the bytes of W.
+* everything else (prefill, transpose): the SIMT SGEMM tile (8x8 outputs
+  per thread, or 4x4 in 32x32 tiles for short contractions; IEEE FMAs, no
+  TF32), a block per tile, contraction segment and ``split``: the
+  segment's contraction in ordered parts that the last block of the tile
+  adds before the noise, where the tiles alone would not balance the
+  card.  Bound: fp32 FMAs.
+
+The saturation flags are ORed into a scratch per device and stream that
+every call leaves zeroed (``kernels/gemm.py``); the last block writes the
+(B,) flags as bytes.  :func:`noisy_mvm` launches the kernel for CUDA
+tensors and runs :func:`noisy_mvm_plain`, the same function in plain
+PyTorch, only for CPU tensors.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.gemm import (
+    GEMV_MAXB, SMS, scratch, tile_shape, vec_rows)
 from repro_torch.utils import fastrng
 
 _M32 = 0xFFFFFFFF
@@ -94,9 +106,63 @@ def noisy_mvm_plain(w: torch.Tensor, x2d: torch.Tensor, seed: int, *,
     return y, sat
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+class Plan(NamedTuple):
+    """How the kernel runs one read: ``path`` "gemv" or "tile" (tile_m x
+    tile_n tiles, each segment's contraction in ``split`` ordered parts);
+    ``ncw`` outputs per warp of the gemv; ``vec``: 16-byte loads (every row
+    16-byte aligned), else aligned scalar loads.  Every read is one
+    launch."""
+    path: str
+    tile_m: int
+    tile_n: int
+    ncw: int
+    vec: bool
+    split: int
+
+
+#: Segments shorter than SHORT_SEG (LeNet's reads) take SHORT_TILE, with
+#: 4x4 outputs per thread instead of 8x8: there each output's read noise
+#: outweighs its multiply-adds, so more threads with fewer outputs each
+#: finish sooner.
+SHORT_SEG, SHORT_TILE = 1024, (32, 32)
+#: Blocks the tiled path aims for: 1.5 per SM.
+SPLIT_TARGET = 3 * SMS // 2
+#: Most parts a segment's contraction is split into, and the least depth
+#: of a part (8 k-tiles of 16).
+MAX_SPLIT, MIN_SPLIT_DEPTH = 8, 128
+
+
+def split_parts(blocks: int, seg_len: int) -> int:
+    """Parts per segment for a grid of ``blocks`` tile blocks (tiles x
+    segments): the fewest that give the card SPLIT_TARGET blocks, at most
+    MAX_SPLIT, each part at least MIN_SPLIT_DEPTH deep.  More parts than
+    that add planes for the last block to add and no speed on an H100 at
+    deepseek's B = 128."""
+    return max(1, min(-(-SPLIT_TARGET // blocks), MAX_SPLIT,
+                      seg_len // MIN_SPLIT_DEPTH))
+
+
+def plan(b: int, k_dim: int, out_dim: int, transpose: bool,
+         aligned: bool = True, n_seg: int = 1) -> Plan:
+    """The kernel's path for a read of ``b`` rows, contraction ``k_dim`` in
+    ``n_seg`` segments and ``out_dim`` outputs; ``aligned``: both base
+    pointers 16-byte aligned.  The gemv and the tile shapes are the
+    managed read's (``managed_mvm.plan``) but for short segments
+    (SHORT_TILE); the tiled path adds the split."""
+    vec = vec_rows(aligned, k_dim, out_dim, transpose)
+    if not transpose and b <= GEMV_MAXB:
+        return Plan("gemv", 0, 0, 2 if out_dim >= 4096 else 1, vec, 1)
+    tm, tn = (SHORT_TILE if -(-k_dim // n_seg) < SHORT_SEG
+              else tile_shape(b, out_dim, n_seg))
+    blocks = -(-b // tm) * -(-out_dim // tn) * n_seg
+    return Plan("tile", tm, tn, 0, vec,
+                split_parts(blocks, -(-k_dim // n_seg)))
+
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
-    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
+    ctypes.c_uint32, ctypes.c_uint32] + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p]
 
 
 def _lib():
@@ -140,19 +206,28 @@ def noisy_mvm(w: torch.Tensor, x2d: torch.Tensor, seed: int, *,
     check_operands(w, x2d)
     b = x2d.shape[0]
     total_rows = b if total_rows is None else total_rows
-    y = torch.empty(b, out_dim, dtype=torch.float32, device=w.device)
-    sat = torch.zeros(b, dtype=torch.int32, device=w.device)
+    dev = w.device
+    y = torch.empty(b, out_dim, dtype=torch.float32, device=dev)
+    sat = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
-        return y, sat.bool()
-    seg_len = -(-k_dim // n_seg)
+        return y, sat
+    p = plan(b, k_dim, out_dim, transpose,
+             w.data_ptr() % 16 == 0 and x2d.data_ptr() % 16 == 0, n_seg)
+    parts = n_seg * p.split if p.path == "tile" else 1
+    tiles = (-(-b // p.tile_m) * -(-out_dim // p.tile_n)
+             if p.path == "tile" else 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    flags, part = scratch(dev, stream, 4 + b + tiles,
+                          parts * b * out_dim if parts > 1 else 0)
     rc = _lib()(
         w.data_ptr(), x2d.data_ptr(), y.data_ptr(), sat.data_ptr(),
-        b, k_dim, out_dim, n_seg, seg_len, int(transpose),
-        float(sigma), float(alpha), int(math.isfinite(alpha)),
-        int(seed) & _M32, int(row_offset or 0) & _M32,
-        (total_rows * n_seg * out_dim) & _M32,
-        torch.cuda.current_stream(w.device).cuda_stream)
+        flags.data_ptr(), part.data_ptr(), b, k_dim, out_dim, n_seg,
+        -(-k_dim // n_seg), int(transpose), float(sigma), float(alpha),
+        int(math.isfinite(alpha)), int(seed) & _M32,
+        int(row_offset or 0) & _M32, (total_rows * n_seg * out_dim) & _M32,
+        int(p.path == "tile"), p.tile_m, p.tile_n, p.ncw, int(p.vec),
+        p.split, stream)
     if rc != 0:
         raise RuntimeError(f"noisy_mvm kernel launch failed: CUDA error {rc}")
     launches += 1
-    return y, sat != 0
+    return y, sat

@@ -13,6 +13,7 @@ pre-clip value at least MARGIN away from +-alpha.
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -205,6 +206,46 @@ def test_conv_kernel_routing():
         TCfg(use_pallas=True, max_array_cols=400), tg, (32, 401))
 
 
+CONV_PLANS = [
+    # (physical outputs, contraction, positions)
+    #     -> (tile_m, tile_n, one block holds every column, parts)
+    ((16, 26, 4608), (64, 16, True, 1)),     # K1 at batch 8
+    ((32, 401, 512), (32, 32, True, 3)),     # K2
+    ((416, 401, 512), (32, 32, False, 3)),   # K2 with 13 devices per weight
+    ((16, 26, 1152), (64, 16, True, 1)),     # K1 at batch 2
+    ((4, 27, 100), (64, 16, True, 1)), ((17, 401, 128), (32, 32, True, 3)),
+    ((48, 200, 1000), (64, 64, True, 1)), ((64, 64, 64), (64, 64, True, 1)),
+    ((65, 1000, 50), (32, 32, False, 7)),
+]
+
+
+@pytest.mark.parametrize("args,want", CONV_PLANS, ids=str)
+def test_conv_read_plan(args, want):
+    assert tuple(tconv.plan(*args)) == want
+
+
+def test_conv_plan_takes_the_narrowest_tile():
+    """The block holds every physical output wherever a tile of the set is
+    that wide, with the narrowest such tile (so no column block is mostly
+    padding); wider arrays select across blocks.  The contraction splits
+    into the fewest parts that give PARTS_TARGET blocks, unless MAX_PARTS
+    or the least part depth caps them."""
+    for out, k, pos in itertools.product(range(1, 600, 7), (9, 26, 401),
+                                         (64, 512, 4608)):
+        p = tconv.plan(out, k, pos)
+        fits = [t for t in tconv.ONE_TILES if out <= t[1]]
+        if fits:
+            assert p[:3] == (fits[0][0], fits[0][1], True)
+            assert p.tile_n < 2 * out or p.tile_n == tconv.ONE_TILES[0][1]
+        else:
+            assert p[:3] == (*tconv.CROSS_TILE, False)
+        tiles = -(-pos // p.tile_m) * -(-out // p.tile_n)
+        cap = max(1, min(tconv.MAX_PARTS, k // tconv.MIN_PART_DEPTH))
+        assert 1 <= p.parts <= cap
+        assert p.parts == cap or tiles * p.parts >= tconv.PARTS_TARGET
+        assert p.parts == 1 or tiles * (p.parts - 1) < tconv.PARTS_TARGET
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel against its plain version (needs the card)
 # ---------------------------------------------------------------------------
@@ -233,3 +274,37 @@ def test_cuda_conv_read_matches_plain(case, cuda):
     assert torch.equal(s.cpu(), sp)
     torch.testing.assert_close(y.cpu(), yp, rtol=0,
                                atol=READ_RTOL * float(yp.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 13])
+@pytest.mark.parametrize("name", ["K1", "K2"])
+def test_cuda_conv_read_is_one_launch(name, d, cuda):
+    """Every conv read at LeNet's widths (batch 8) is one ordinary kernel
+    launch with no memset: ten reads make ten ``cudaLaunchKernel`` calls,
+    and every kernel record the profiler keeps is the conv read's."""
+    if name == "K1" and d > 1:
+        pytest.skip("K1 has one device per weight")
+    b, h, w_, c, k, out, st, pad, dil = GEOMS[name]
+    tg = tcm.conv_geometry((8, h, w_, c), k, st, pad, dil, True)
+    g = torch.Generator().manual_seed(d)
+    w = (torch.randn(out * d, tg.cols, generator=g) * 0.3).to(cuda)
+    xp = tcm._pad_volume(torch.randn(8, h, w_, c, generator=g), tg).to(cuda)
+    nm_s = torch.ones(tg.positions, 1, device=cuda)
+    kw = dict(sigma=0.06, alpha=4.0, two_phase=True, d_avg=d)
+    tconv.conv_managed_mvm(w, xp, tg, nm_s, (3, 4), **kw)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(10):
+            tconv.conv_managed_mvm(w, xp, tg, nm_s, (3, 4), **kw)
+        torch.cuda.synchronize()
+    host, kernels = {}, {}
+    for e in prof.key_averages():
+        on_device = str(getattr(e, "device_type", "")).endswith("CUDA")
+        (kernels if on_device else host)[e.key] = e.count
+    launched = {k: n for k, n in host.items()
+                if k.startswith(("cudaLaunch", "cudaMemset"))}
+    assert launched == {"cudaLaunchKernel": 10}, launched
+    assert kernels and all("conv_read" in k for k in kernels), kernels

@@ -32,6 +32,7 @@ from repro.kernels import ops as jops
 from repro_torch.core import management as tmgmt
 from repro_torch.core import tile as ttile
 from repro_torch.core.device import RPUConfig as TCfg
+from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import managed_mvm as tmanaged
 from repro_torch.kernels import noisy_mvm as tnoisy
 from repro_torch.kernels import ops as tops
@@ -333,6 +334,67 @@ def test_plan_fills_the_card_or_takes_the_smaller_tile():
         assert tmanaged.plan(b, 4096, 4096, False).path == "gemv"
 
 
+RAW_PLANS = [
+    # (B, k_dim, out_dim, transpose, aligned[, n_seg])
+    #     -> (path, tile_m, tile_n, ncw, vec, split)
+    ((4, 4096, 11008, False, True), ("gemv", 0, 0, 2, True, 1)),  # wi
+    ((4, 11008, 4096, False, True, 3), ("gemv", 0, 0, 2, True, 1)),  # wo
+    ((4, 4096, 102400, False, True), ("gemv", 0, 0, 2, True, 1)),  # unembed
+    ((1, 4096, 1024, False, True), ("gemv", 0, 0, 1, True, 1)),
+    ((8, 513, 128, False, True), ("gemv", 0, 0, 1, False, 1)),    # LeNet W3
+    ((8, 4096, 4096, False, False), ("gemv", 0, 0, 2, False, 1)),  # unaligned
+    # deepseek's prefill B = 128: 64 and 172 tiles balanced by splits
+    ((128, 4096, 4096, False, True), ("tile", 64, 128, 0, True, 4)),
+    ((128, 4096, 11008, False, True), ("tile", 64, 128, 0, True, 2)),
+    ((128, 11008, 4096, False, True, 3), ("tile", 64, 128, 0, True, 2)),
+    ((128, 11008, 4096, True, True, 3), ("tile", 64, 128, 0, True, 2)),
+    ((4, 4096, 4096, True, True), ("tile", 64, 128, 0, True, 7)),  # transpose
+    ((300, 520, 200, True, True, 2), ("tile", 32, 32, 0, True, 2)),
+    ((130, 300, 200, False, True, 3), ("tile", 32, 32, 0, True, 1)),
+    ((2000, 5120, 17408, False, True, 2), ("tile", 128, 128, 0, True, 1)),
+    # LeNet's ITERATIVE reads: unaligned rows, short contractions (4x4
+    # outputs per thread in 32x32 tiles)
+    ((4608, 26, 16, False, True), ("tile", 32, 32, 0, False, 1)),   # K1
+    ((512, 401, 32, False, True), ("tile", 32, 32, 0, False, 3)),   # K2
+    ((4608, 16, 26, True, True), ("tile", 32, 32, 0, False, 1)),    # K1^T
+    ((512, 32, 401, True, True), ("tile", 32, 32, 0, False, 1)),    # K2^T
+    ((8, 128, 513, True, True), ("tile", 32, 32, 0, False, 1)),     # W3^T
+    ((8, 10, 129, True, True), ("tile", 32, 32, 0, False, 1)),      # W4^T
+]
+
+
+@pytest.mark.parametrize("args,want", RAW_PLANS, ids=str)
+def test_raw_read_plan(args, want):
+    assert tuple(tnoisy.plan(*args)) == want
+
+
+def test_raw_read_split_balances_the_grid():
+    """The raw read takes the managed read's gemv and tile shape (SHORT_TILE
+    for segments shorter than SHORT_SEG), and splits each segment's
+    contraction into the fewest parts that give the card SPLIT_TARGET
+    blocks, unless MAX_SPLIT or the least part depth (MIN_SPLIT_DEPTH) caps
+    them; decode reads never split."""
+    for b, k, out, n_seg in itertools.product(
+            (1, 8, 9, 128, 512, 4608), (26, 401, 4096, 11008),
+            (16, 401, 4096, 11008), (1, 3)):
+        p = tnoisy.plan(b, k, out, False, True, n_seg)
+        m = tmanaged.plan(b, k, out, False, True, n_seg)
+        seg = -(-k // n_seg)
+        if p.path == "gemv" or seg >= tnoisy.SHORT_SEG:
+            assert (p.path, p.tile_m, p.tile_n, p.ncw, p.vec) == tuple(m)
+        else:
+            assert (p.path, p.tile_m, p.tile_n) == ("tile",
+                                                     *tnoisy.SHORT_TILE)
+        if p.path == "gemv":
+            assert p.split == 1
+            continue
+        blocks = -(-b // p.tile_m) * -(-out // p.tile_n) * n_seg
+        cap = max(1, min(tnoisy.MAX_SPLIT, seg // tnoisy.MIN_SPLIT_DEPTH))
+        assert 1 <= p.split <= cap
+        assert p.split == cap or blocks * p.split >= tnoisy.SPLIT_TARGET
+        assert p.split == 1 or blocks * (p.split - 1) < tnoisy.SPLIT_TARGET
+
+
 def _scaled(g, rows, cols, dev):
     """Rows at scales 1, 8 and 300 in turn: no saturation, the first read
     only, and both two-phase reads (alpha 12)."""
@@ -420,5 +482,106 @@ def test_cuda_flags_do_not_leak_between_reads(shape, cuda):
         assert bool(got[1].all()) == sat and torch.equal(got[1], want[1])
         _assert_read_close(got, want, w, x, False)
         stream = torch.cuda.current_stream(w.device).cuda_stream
-        flags, _ = tmanaged._SCRATCH[(w.device, stream)]
+        flags, _ = tgemm._SCRATCH[(w.device, stream)]
         assert int(flags.abs().sum()) == 0
+
+
+def _raw_pair(w, x, seed, **kw):
+    kw = dict(sigma=SIGMA, alpha=12.0, **kw)
+    got = tnoisy.noisy_mvm(w, x, seed, **kw)
+    want = tnoisy.noisy_mvm_plain(w, x, seed, **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", range(1, 9))
+def test_cuda_raw_gemv_every_batch(b, cuda):
+    """Every decode batch 1-8 of the raw read through its one-launch gemv,
+    with and without float4 loads, in one segment and in two."""
+    for c in (4096, 4093):
+        g = torch.Generator().manual_seed(b * c + 1)
+        w = (torch.randn(300, c, generator=g) * c ** -0.5).to(cuda)
+        x = _scaled(g, b, c, cuda)
+        assert tnoisy.plan(b, c, 300, False).path == "gemv"
+        for n_seg in (1, 2):
+            got, want = _raw_pair(w, x, b + 40, n_seg=n_seg)
+            _assert_read_close(got, want, w, x, False)
+
+
+RAW_CUDA_CASES = [
+    # (B, rows, cols, n_seg, transpose): LeNet's ITERATIVE reads, the
+    # split tile (B 128), segments as planes with and without splits
+    (4608, 16, 26, 1, False), (512, 32, 401, 1, False),
+    (4608, 16, 26, 1, True), (512, 32, 401, 1, True),
+    (8, 128, 513, 1, True), (8, 10, 129, 1, True),
+    (128, 1024, 4096, 1, False), (130, 200, 300, 3, False),
+    (70, 200, 11008, 3, False), (300, 520, 200, 2, True),
+    (4, 512, 4096, 1, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAW_CUDA_CASES, ids=str)
+def test_cuda_raw_tile_paths_match_plain(case, cuda):
+    b, r, c, n_seg, tr = case
+    g = torch.Generator().manual_seed(b + r + c + 7)
+    w = (torch.randn(r, c, generator=g) * (r if tr else c) ** -0.5).to(cuda)
+    x = _scaled(g, b, r if tr else c, cuda)
+    got, want = _raw_pair(w, x, 2 ** 32 - 3, n_seg=n_seg, transpose=tr,
+                          row_offset=5, total_rows=b + 9)
+    _assert_read_close(got, want, w, x, tr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 512, 4096), (200, 512, 4096),
+                                   (128, 1024, 4096)],
+                         ids=["gemv", "tile", "split"])
+def test_cuda_raw_flags_do_not_leak_between_reads(shape, cuda):
+    """Raw reads that saturate everywhere, nowhere, then everywhere on one
+    stream: each read's flags are its own, and the scratch is zero after
+    each read."""
+    b, r, c = shape
+    g = torch.Generator().manual_seed(12)
+    w = (torch.randn(r, c, generator=g) * c ** -0.5).to(cuda)
+    loud = (torch.randn(b, c, generator=g) * 300.0).to(cuda)
+    quiet = (torch.randn(b, c, generator=g) * 0.1).to(cuda)
+    for x, sat in ((loud, True), (quiet, False), (loud, True)):
+        got, want = _raw_pair(w, x, 3)
+        assert bool(got[1].all()) == sat and torch.equal(got[1], want[1])
+        _assert_read_close(got, want, w, x, False)
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        flags, _ = tgemm._SCRATCH[(w.device, stream)]
+        assert int(flags.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 512, 4096, 1), (4, 512, 4096, 2),
+                                   (128, 1024, 4096, 1),
+                                   (130, 200, 300, 3)],
+                         ids=["gemv", "gemv-2seg", "split", "planes"])
+def test_cuda_raw_read_is_one_launch(shape, cuda):
+    """One raw read is one ordinary kernel launch: ten reads make ten
+    ``cudaLaunchKernel`` calls and no other launch or memset, and every
+    kernel record the profiler keeps is the raw read's (no fill before it,
+    no flag conversion after it)."""
+    b, r, c, n_seg = shape
+    w = torch.randn(r, c, device=cuda)
+    x = torch.randn(b, c, device=cuda)
+    kw = dict(sigma=SIGMA, alpha=12.0, n_seg=n_seg)
+    tnoisy.noisy_mvm(w, x, 1, **kw)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(10):
+            tnoisy.noisy_mvm(w, x, 1, **kw)
+        torch.cuda.synchronize()
+    host, kernels = {}, {}
+    for e in prof.key_averages():
+        on_device = str(getattr(e, "device_type", "")).endswith("CUDA")
+        (kernels if on_device else host)[e.key] = e.count
+    launched = {k: n for k, n in host.items()
+                if k.startswith(("cudaLaunch", "cudaMemset"))}
+    assert launched == {"cudaLaunchKernel": 10}, launched
+    assert kernels and all("raw_" in k for k in kernels), kernels
