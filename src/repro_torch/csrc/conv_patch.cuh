@@ -3,10 +3,12 @@
 // reaches device memory.  Row m is the global position img * OH*OW + pos,
 // column k the channel-major feature c * kh*kw + ih * kw + iw of the
 // parameter matrix; column `features` is the bias input (constant 1).
-// patch_value builds one element (#7's stream drivers); ConvX is the x
-// loader of managed_gemm.cuh's tile (#3's read), which splits the index
-// into a row part, fixed for a thread's rows over the whole contraction,
-// and a column part shared by the rows it loads in one k-tile.
+// Both users split an element's offset into a row part and a column part:
+// patch_row / patch_col for #7's stream drivers (a row part per stream
+// slot, a column part per staging thread), and ConvX, the x loader of
+// managed_gemm.cuh's tile (#3's read), with a row part fixed for a thread's
+// rows over the whole contraction and a column part shared by the rows it
+// loads in one k-tile.
 #pragma once
 
 #include "analog_read.cuh"
@@ -33,17 +35,21 @@ inline int conv_cols(const int* geom) {
   return geom[3] * geom[4] * geom[5] + (geom[12] ? 1 : 0);
 }
 
-__device__ __forceinline__ float patch_value(const ConvGeomDev& g, int m,
-                                             int k) {
-  if (k >= g.features) return 1.0f;  // bias column
-  const int kk = g.kh * g.kw;
-  const int c = k / kk, t = k - c * kk;
-  const int ih = t / g.kw, iw = t - ih * g.kw;
+// Offset in xpad of the window of position row m (img * OH*OW + pos).
+__device__ __forceinline__ int patch_row(const ConvGeomDev& g, int m) {
   const int per_img = g.oh * g.ow;
   const int img = m / per_img, pos = m - img * per_img;
   const int i = pos / g.ow, j = pos - i * g.ow;
-  const int row = i * g.sh + ih * g.dh, col = j * g.sw + iw * g.dw;
-  return g.xpad[(((size_t)img * g.H + row) * g.W + col) * g.C + c];
+  return ((img * g.H + i * g.sh) * g.W + j * g.sw) * g.C;
+}
+
+// Offset of column k inside a window; -1 for the bias column.
+__device__ __forceinline__ int patch_col(const ConvGeomDev& g, int k) {
+  if (k >= g.features) return -1;
+  const int kk = g.kh * g.kw;
+  const int c = k / kk, t = k - c * kk;
+  const int ih = t / g.kw, iw = t - ih * g.kw;
+  return (ih * g.dh * g.W + iw * g.dw) * g.C + c;
 }
 
 // x loader of managed_gemm.cuh's Tile (non-VEC path): a thread's x chunks

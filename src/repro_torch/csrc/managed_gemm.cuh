@@ -13,7 +13,10 @@
 //   #3 conv_mvm.cu: Tile (4x4) with the implicit-im2col loader ConvX
 //     (conv_patch.cuh), the select in the block or in the last block of a
 //     row tile; each read one launch.
-// #6/#7 bwd_update_mvm.cu still use the older tile of analog_read.cuh.
+//   #6/#7 bwd_update_mvm.cu: Tile (DenseX, 32x32, transposed, 4x4) for the
+//     transpose read beside the count blocks of pulse_stream.cuh, the
+//     select in the block or in the last block of a row tile; each call
+//     one launch.
 // The noise, read_value and counter of analog_read.cuh and managed_value
 // of managed_read.cuh are shared, so every kernel reads with the same
 // numbers.

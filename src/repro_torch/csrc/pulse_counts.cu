@@ -11,9 +11,9 @@
 // blocks run in no order and the counts are exact integers, so here each
 // block owns a 32 x 32 device tile and 256 of the T slots, counts
 // coincidences in int32 registers from int8 copies of the streams in shared
-// memory, and adds its totals to the outputs with f32 atomics: exact below
-// 2^24 in any order, so bitwise the plain two-matmul version
-// (pulse_stream.cuh).
+// memory (four slots per __dp4a), and adds its totals to the outputs with
+// f32 atomics: exact below 2^24 in any order, so bitwise the plain
+// two-matmul version (pulse_stream.cuh).
 //
 // Bound on the H100: the bytes of the two f32 stream matrices (LeNet's K1 at
 // BL = 10: 46080 x (16 + 26) x 4 = 7.7 MB, 2.3 us at 3.35 TB/s); at BL = 1
@@ -23,7 +23,7 @@
 
 namespace analog {
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(COUNT_THREADS)
     pulse_counts_kernel(CountTile c, MemStreams src) {
   count_block(c, src, blockIdx.x);
 }
@@ -41,7 +41,7 @@ extern "C" int pulse_counts_launch(const float* rows, const float* cols,
   const analog::CountTile c = analog::make_count_tile(M, N, T, up, dn);
   const int blocks = analog::count_blocks(c);
   if (blocks > 0)
-    analog::pulse_counts_kernel<<<blocks, analog::THREADS, 0, s>>>(
+    analog::pulse_counts_kernel<<<blocks, analog::COUNT_THREADS, 0, s>>>(
         c, analog::MemStreams{rows, cols, M, N});
   return static_cast<int>(cudaGetLastError());
 }

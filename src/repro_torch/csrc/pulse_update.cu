@@ -39,14 +39,15 @@ struct UpdateArgs {
   float ctoc;
 };
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(COUNT_THREADS)
     pulse_update_kernel(CountTile c, MemStreams src, UpdateArgs u) {
+  __shared__ int stage[STAGE_INTS];
   const int m0 = (blockIdx.x / c.tiles_n) * CT;
   const int n0 = (blockIdx.x % c.tiles_n) * CT;
-  int up[4], dn[4];
-  count_range(c, src, m0, n0, 0, c.T, up, dn);
-  const int t = threadIdx.x;
-  const int m = m0 + t / (CT / 4), nb = n0 + (t % (CT / 4)) * 4;
+  int up[1][4], dn[1][4];
+  count_range<COUNT_THREADS>(c, src, m0, n0, 0, c.T, stage, up, dn);
+  const int m = m0 + CountLayout<COUNT_THREADS>::row0();
+  const int nb = n0 + CountLayout<COUNT_THREADS>::col0();
   if (m >= c.M) return;
   const uint32_t n_total = (uint32_t)c.M * (uint32_t)c.N;
   const uint32_t seed_m = mix32(u.seed);
@@ -55,7 +56,7 @@ __global__ void __launch_bounds__(THREADS)
     const int n = nb + j;
     if (n >= c.N) continue;
     const size_t i = (size_t)m * c.N + n;
-    const float cu = (float)up[j], cd = (float)dn[j];
+    const float cu = (float)up[0][j], cd = (float)dn[0][j];
     const float du = u.dw_up[i], dd = u.dw_dn[i];
     float dw = __fsub_rn(__fmul_rn(cu, du), __fmul_rn(cd, dd));
     if (u.ctoc > 0.0f) {
@@ -85,8 +86,8 @@ extern "C" int pulse_update_launch(const float* w, const float* dw_up,
   const analog::CountTile c =
       analog::make_count_tile(M, N, T, nullptr, nullptr);
   const analog::UpdateArgs u{w, dw_up, dw_dn, bound, out, seed, ctoc};
-  analog::pulse_update_kernel<<<c.tiles_m * c.tiles_n, analog::THREADS, 0,
-                                s>>>(c, analog::MemStreams{rows, cols, M, N},
-                                     u);
+  analog::pulse_update_kernel<<<c.tiles_m * c.tiles_n,
+                                analog::COUNT_THREADS, 0, s>>>(
+      c, analog::MemStreams{rows, cols, M, N}, u);
   return static_cast<int>(cudaGetLastError());
 }

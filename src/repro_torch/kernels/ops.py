@@ -152,8 +152,11 @@ def conv_managed_mvm(w: Tensor, xpad: Tensor, geom, nm_s: Tensor,
             d_avg=cfg.devices_per_weight)
 
 
-def _gains(cx: Tensor, cd: Tensor) -> Tensor:
-    return torch.stack([cx.reshape(()), cd.reshape(())]).to(torch.float32)
+def _gains(cx: Tensor, cd: Tensor) -> Tuple[Tensor, Tensor]:
+    """(C_x, C_d) as two float32 device scalars (views of float32 gains:
+    no kernel)."""
+    return (cx.reshape(()).to(torch.float32),
+            cd.reshape(()).to(torch.float32))
 
 
 def bwd_update_mvm(w: Tensor, x: Tensor, g_rep: Tensor, read_key: prng.Key,

@@ -249,3 +249,113 @@ def test_cuda_conv_fused_matches_plain(case, cuda):
     torch.cuda.synchronize()
     _assert_kernel_matches(got, tbwd.conv_bwd_update_plain(
         _t(w), _t(x), _t(dr), geom, nm_s, (5, 6), (11, 12), gains, **kw))
+
+
+# ---------------------------------------------------------------------------
+# The kernel's plan (host arithmetic: runs without a card)
+# ---------------------------------------------------------------------------
+
+def _conv_plan_shape(shape, d, bl):
+    b, h, w_, c, k, out = shape
+    geom = tcm.conv_geometry((b, h, w_, c), k)
+    return geom.positions, out * d, geom.cols, bl
+
+
+# (rows, m_phys, n_cols, BL) and the expected (one, read parts, slot
+# parts) at LeNet's shapes (batch 8); None for the odd test shapes
+PLAN_CASES = [
+    ((4608, 16, 26, 1), (True, 1, 72)),        # K1, managed
+    ((4608, 16, 26, 10), (True, 1, 360)),      # K1, nm_bm
+    ((512, 32, 401, 1), (False, 1, 8)),        # K2
+    ((512, 416, 401, 1), (False, 3, 4)),       # K2, 13 devices per weight
+    ((8, 128, 513, 1), (False, 1, 1)),         # W3
+    ((8, 10, 129, 10), (False, 1, 1)),         # W4
+] + [((c[0], c[1] * c[6], c[2], c[7]), None) for c in DENSE] + [
+    (_conv_plan_shape(c[0], c[4], c[5]), None) for c in CONV]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: str(c[0]))
+def test_plan_covers_contraction_and_slots(case):
+    (rows, m, n, bl), want = case
+    for two_phase in (True, False):
+        p = tbwd.plan(rows, m, n, bl, two_phase)
+        # the read's contraction: ordered parts of 16-row k-tiles, each
+        # non-empty, covering [0, m) exactly
+        assert p.read_len % 16 == 0 and 1 <= p.read_parts <= 8
+        bounds = [(q * p.read_len, min(m, (q + 1) * p.read_len))
+                  for q in range(p.read_parts)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == m
+        assert all(a < b for a, b in bounds)
+        assert all(bounds[i][1] == bounds[i + 1][0]
+                   for i in range(len(bounds) - 1))
+        # the stream slots: parts of whole staging rounds covering [0, T)
+        t = rows * bl
+        assert p.slot_len % tbwd.SLOT_ROUND == 0
+        slots = [(q * p.slot_len, min(t, (q + 1) * p.slot_len))
+                 for q in range(p.slot_parts)]
+        assert slots[-1][1] == t and all(a < b for a, b in slots)
+        # one block holds every column only where the tile is that wide
+        assert (p.tile_m, p.tile_n) == tbwd.TILE
+        assert p.one == (n <= p.tile_n)
+        # scratch: int32 flags, tickets (row tiles, read tiles, device
+        # tiles) and the counts' atomic sums; float32 second reads, the
+        # read's partial planes and, where few slot parts meet, a pair of
+        # count planes per part
+        row_tiles = -(-rows // p.tile_m)
+        tiles = row_tiles * -(-n // p.tile_n)
+        dev_tiles = -(-m // 32) * -(-n // 32)
+        assert p.sum_planes == (1 < p.slot_parts <= tbwd.MAX_PLANE_PARTS)
+        atomic = p.slot_parts > 1 and not p.sum_planes
+        assert p.ints == (2 * rows + row_tiles + tiles + dev_tiles
+                          + 2 * m * n * atomic)
+        assert p.floats == (rows * n * (two_phase and not p.one)
+                            + rows * n * p.read_parts * (p.read_parts > 1)
+                            + 2 * m * n * p.slot_parts * p.sum_planes)
+        if want is not None:
+            assert (p.one, p.read_parts, p.slot_parts) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DENSE, ids=str)
+def test_cuda_dense_back_to_back_matches_plain(case, cuda):
+    """Two calls with different inputs, no synchronise between: the second
+    finds the scratch as the first left it (zeroed)."""
+    b, out_f, n, nm, bm, um, d, bl, off, scale = case
+    w, x, g = _dense_fixture(b, out_f, n, d, scale, seed=b + n)
+    gains = torch.tensor([0.9, 1.7])
+    kw = dict(sigma=0.06, alpha=4.0, two_phase=bm, bl=bl)
+    calls = []
+    for i, s in enumerate((1.0, 30.0)):
+        d2d = _t(np.tile(g, (1, d)) * s)
+        nm_s = d2d.abs().amax(1, keepdim=True) if nm else torch.ones(b, 1)
+        calls.append((d2d, nm_s, (5 + i, 6), (11, 12 + i, int(off or 0))))
+    got = [tbwd.bwd_update_mvm(_t(w).to(cuda), d_.to(cuda), _t(x).to(cuda),
+                               n_.to(cuda), rs, us, gains.to(cuda), **kw)
+           for d_, n_, rs, us in calls]
+    torch.cuda.synchronize()
+    for (d_, n_, rs, us), out in zip(calls, got):
+        _assert_kernel_matches(out, tbwd.bwd_update_mvm_plain(
+            _t(w), d_, _t(x), n_, rs, us, gains, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV, ids=str)
+def test_cuda_conv_back_to_back_matches_plain(case, cuda):
+    shape, nm, bm, um, d, bl = case
+    x, w, dr, geom = _conv_fixture(shape, d, seed=sum(shape) + d)
+    gains = torch.tensor([0.9, 1.7])
+    kw = dict(sigma=0.06, alpha=4.0, two_phase=bm, bl=bl)
+    calls = []
+    for i, s in enumerate((1.0, 30.0)):
+        d_ = _t(dr * s)
+        nm_s = (d_.abs().amax(1, keepdim=True) if nm
+                else torch.ones(geom.positions, 1))
+        calls.append((d_, nm_s, (5 + i, 6), (11, 12 + i)))
+    got = [tbwd.conv_bwd_update(_t(w).to(cuda), _t(x).to(cuda), d_.to(cuda),
+                                geom, n_.to(cuda), rs, us, gains.to(cuda),
+                                **kw)
+           for d_, n_, rs, us in calls]
+    torch.cuda.synchronize()
+    for (d_, n_, rs, us), out in zip(calls, got):
+        _assert_kernel_matches(out, tbwd.conv_bwd_update_plain(
+            _t(w), _t(x), d_, geom, n_, rs, us, gains, **kw))
