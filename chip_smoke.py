@@ -41,8 +41,23 @@ Phases, each of which makes the script exit non-zero when it fails:
       backward+update (and ITERATIVE's raw reads) one ordinary kernel
       launch, and the analog kernels of a FUSED or PAPER step 8 launches
       and no memset or copy;
+  (g2) the epoch engine (``repro_torch.train.engine``): under FUSED,
+      SEPARATE and PAPER, 20 steps through ``engine="python"`` (twice from
+      one state: the loop is bitwise equal to itself) and through
+      ``engine="scan"`` (one CUDA graph replay per step, its keys and seeds
+      from the key-schedule kernel) from the same tiles, keys and batches:
+      every tile bitwise equal; the key-schedule kernel's tables bitwise
+      its plain evaluator for those 20 steps; the captured step's nodes
+      (its DOT dump): 8 analog kernels for FUSED and PAPER plus one
+      key-schedule launch and no memset or copy; the epoch's launches, each
+      replay adding what its capture recorded (a warm-up step's analog
+      kernels, then 20 replays' and 20 key schedules); a second epoch of each
+      engine timed (steps/s, images/s; tiles still equal), and one
+      replayed step profiled beside one loop step (wall, device busy,
+      idle share);
   (h) train 2 epochs of 1024 synthetic images under nm_bm with two-phase
-      BM and the fused update: final test error below 0.4;
+      BM and the fused update through ``engine="scan"``: final test error
+      below 0.4;
   (r2) one FUSED training step on the card against the plain CPU step on
       the same parameters, images and key: logits, x_bar, new weights;
   (b8) hold the flash-attention kernel against its plain version on the
@@ -72,7 +87,8 @@ Phases, each of which makes the script exit non-zero when it fails:
       raw read at the shapes of LeNet's ITERATIVE step, and where the time
       of one call goes (#2's and #1's decode read, #3's K1 read, #6 at W4,
       #7 at K2 with 13 devices per weight: host enqueue, wall, device time,
-      kernels, launches and allocations per call).
+      kernels, launches and allocations per call); the key-schedule kernel
+      is timed in g2, at the FUSED step's tape.
 
 The line before the card line is the kernels' JSON summary; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
@@ -198,6 +214,13 @@ KERNELS = {
                             replaces="src/repro/kernels/flash_attention.py:83",
                             kind="flash_attention", run="serve_qwen3",
                             shape="qwen3 prefill float32"),
+    # no TPU kernel: the threefry XLA runs inside the jitted epoch
+    # (fold_in_keys and the key tree under each step key)
+    "key_schedule": dict(route="cuda",
+                         source="src/repro_torch/csrc/key_schedule.cu",
+                         replaces="src/repro/train/engine.py:53",
+                         kind="key_schedule", run="engine_fused",
+                         shape="LeNet FUSED step"),
 }
 
 
@@ -225,9 +248,13 @@ def build_kernels():
     dt = time.perf_counter() - t0
     for name, path in paths.items():
         print(f"[build] {name}: {path.name}")
+        entry = "?"
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                usage = line.strip().removeprefix("ptxas info").strip(" :")
+                print(f"  {entry}: {usage}")
     print(f"[build] {len(paths)} kernels in {dt:.1f}s (parallel nvcc)")
     sass_check(paths["flash_attention"])
     return dt
@@ -784,7 +811,7 @@ def kernel_times(results):
                   f"{row['plain_ms']:.4f} ms matmul "
                   f"{row['library_ms']:.4f} ms")
             del w, x
-    results["times"] = rows
+    results["times"] = results.get("times", []) + rows
     results["read_split"] = read_split()
     return rows
 
@@ -1160,10 +1187,11 @@ class _PlainCalls:
 
     def __init__(self):
         from repro_torch.kernels import (bwd_update_mvm, conv_mvm,
-                                         flash_attention, managed_mvm,
-                                         noisy_mvm, pulse_update)
+                                         flash_attention, key_schedule,
+                                         managed_mvm, noisy_mvm,
+                                         pulse_update)
         self.mods = (noisy_mvm, managed_mvm, conv_mvm, pulse_update,
-                     bwd_update_mvm, flash_attention)
+                     bwd_update_mvm, flash_attention, key_schedule)
         self.calls = 0
         self.saved = []
 
@@ -1272,6 +1300,209 @@ def lenet_training(results):
 
 
 # ---------------------------------------------------------------------------
+# (g2) the epoch engine: one CUDA graph replay per step
+# ---------------------------------------------------------------------------
+
+ENGINE_POLICIES = (("fused", FUSED), ("separate", SEPARATE), ("paper", PAPER))
+# analog kernel nodes of one captured step (a tiled managed read is two
+# kernels: tile and finish)
+GRAPH_ANALOG = {"fused": 8, "paper": 8, "separate": 16}
+
+
+def _graph_census(graph, path):
+    """Nodes of a captured graph from its DOT dump:
+    ``{"analog": n, "key_schedule": n, "kernel": n, "memset": n, "memcpy":
+    n, "other": n}``.  Analog kernels are those of namespace ``analog``
+    (mangled ``6analog``)."""
+    import re
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    graph.debug_dump(str(path))
+    text = Path(path).read_text()
+    census = dict(analog=0, key_schedule=0, kernel=0, memset=0, memcpy=0,
+                  other=0)
+    for label in re.findall(r'label="\{(.*?)"\]', text, flags=re.S):
+        head = label.upper()
+        if "MEMSET" in head:
+            census["memset"] += 1
+        elif "MEMCPY" in head:
+            census["memcpy"] += 1
+        elif "KERNEL" in head:
+            census["kernel"] += 1
+            census["key_schedule"] += "key_schedule_kernel" in label
+            census["analog"] += ("6analog" in label or "analog::" in label)
+        else:
+            census["other"] += 1
+    return census
+
+
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def engine_parity(name, policy, results):
+    """20 steps through ``engine="python"`` (twice, to show the loop
+    deterministic) and through ``engine="scan"`` from the same tiles, keys
+    and batches: every tile bitwise equal; the key-schedule kernel's tables
+    bitwise its plain evaluator for each of those steps; the captured
+    step's nodes; then one more epoch of each engine, timed, and one
+    replayed step profiled beside one loop step."""
+    import torch
+    from repro_torch.analog import presets
+    from repro_torch.kernels import key_schedule as ks
+    from repro_torch.kernels import ops
+    from repro_torch.models import lenet
+    from repro_torch.train import cnn, engine
+    from repro_torch.utils import prng
+
+    label = f"engine_{name}"
+    cfg = lenet.LeNetConfig.from_policy(presets.parse_policy(policy))
+    xs, ys = _lenet_images(LENET_STEPS * LENET_BATCH, seed=1)
+    k_data, k_train = prng.key(3), prng.key(2)
+    step = cnn.make_train_step(cfg)
+    loops = []
+    for _ in range(2):
+        p = lenet.init(prng.key(0), cfg, device=DEV)
+        cnn.python_epoch(step, p, xs, ys, k_data, k_train, 0, LENET_BATCH)
+        loops.append(p)
+    torch.cuda.synchronize()
+    same = {n: torch.equal(loops[0][n].w, loops[1][n].w) for n in lenet.LAYERS}
+    print(f"[{label}] loop twice from one state, bitwise equal: {same}")
+    check(all(same.values()), f"{name}: the loop differs from itself")
+
+    p_scan = lenet.init(prng.key(0), cfg, device=DEV)
+    run = engine.make_cnn_epoch_fn(cfg, batch=LENET_BATCH)
+    with _PlainCalls() as plain:
+        ops.reset_launch_counts()
+        build_s = _timed(lambda: run(p_scan, xs, ys, k_data, k_train, 0))
+        counts = ops.launch_counts()
+    check(plain.calls == 0, f"{plain.calls} plain-version calls on the card")
+    equal = {n: torch.equal(loops[0][n].w, p_scan[n].w) for n in lenet.LAYERS}
+    prog = run.program
+    print(f"[{label}] {LENET_STEPS} graphed steps (capture included, "
+          f"{build_s:.2f}s) vs {LENET_STEPS} loop steps, every tile bitwise "
+          f"equal: {equal}; launches (the warm-up step's and "
+          f"{LENET_STEPS} replays') { {k: v for k, v in counts.items() if v} }"
+          f", per replay {prog.captured}")
+    check(all(equal.values()), f"{name}: graphed steps differ from the loop")
+    # the warm-up step that records the tape launches one step's kernels
+    # through the wrappers; each replay launches what its capture recorded
+    per_replay = dict(PER_STEP[name], key_schedule=1)
+    check(prog.captured == per_replay,
+          f"{name}: the capture recorded {prog.captured}, expected "
+          f"{per_replay}")
+    want = {k: LENET_STEPS * v + PER_STEP[name].get(k, 0)
+            for k, v in per_replay.items()}
+    check({k: v for k, v in counts.items() if v} == want,
+          f"{name}: the epoch launched {counts}, expected {want}")
+
+    tape = prog.tape
+    n_keys, n_seeds = len(tape.recorded[0]) + 1, len(tape.recorded[2])
+    err = 0
+    for s in range(LENET_STEPS):
+        prog.ctr[1].fill_(s)
+        ks.key_schedule(tape, prog.base, prog.ctr[1])
+        keys, seeds = ks.evaluate_plain(tape, k_train, s)
+        got_k = tape.keys[:n_keys].cpu().tolist()
+        got_s = tape.seeds[:n_seeds].cpu().tolist()
+        err = max([err] + [abs(a - b) for ka, kb in zip(got_k, keys)
+                           for a, b in zip(ka, kb)]
+                  + [abs(a - b) for a, b in zip(got_s, seeds)])
+    print(f"[{label}] key tape: {n_keys - 1} derivations, {n_seeds} seeds, "
+          f"{tape.program()[4]} levels; kernel tables vs plain evaluator over "
+          f"{LENET_STEPS} steps: max |diff| {err}")
+    check(err == 0, f"{name}: the key-schedule kernel disagrees with its "
+          "plain evaluator")
+    census = _graph_census(prog.graph,
+                           ROOT / "build" / "graphs" / f"{name}.dot")
+    print(f"[{label}] captured step's nodes: {census}")
+    check(census["key_schedule"] == 1
+          and census["analog"] == GRAPH_ANALOG[name],
+          f"{name}: the captured step holds {census}")
+    if name != "separate":  # SEPARATE's pulse counts zero by memset
+        check(census["memset"] == census["memcpy"] == 0,
+              f"{name}: the captured step holds a memset or copy: {census}")
+
+    # one more epoch of each engine, timed (both warm)
+    loop_s = _timed(lambda: cnn.python_epoch(step, loops[0], xs, ys, k_data,
+                                             k_train, 1, LENET_BATCH))
+    scan_s = _timed(lambda: run(p_scan, xs, ys, k_data, k_train, 1))
+    equal2 = all(torch.equal(loops[0][n].w, p_scan[n].w)
+                 for n in lenet.LAYERS)
+    rate = {k: dict(steps_per_s=LENET_STEPS / t,
+                    images_per_s=LENET_STEPS * LENET_BATCH / t, seconds=t)
+            for k, t in (("python", loop_s), ("scan", scan_s))}
+    print(f"[{label}] epoch 2, {LENET_STEPS} steps: python "
+          f"{rate['python']['steps_per_s']:.1f} steps/s "
+          f"{rate['python']['images_per_s']:.1f} images/s, scan "
+          f"{rate['scan']['steps_per_s']:.1f} steps/s "
+          f"{rate['scan']['images_per_s']:.1f} images/s; tiles still bitwise "
+          f"equal: {equal2}")
+    check(equal2, f"{name}: the engines part in their second epoch")
+
+    prog.ctr.copy_(torch.tensor([0, 2 * prog.spe]))
+    replay = _profile_step(prog.run, f"one replayed {name} step")
+    recs = {k: sum(n for kern, n in replay.get("kernels", {}).items()
+                   if any(w in kern for w in words))
+            for k, words in (("analog", ("analog::",)),
+                             ("key_schedule", ("key_schedule",)),
+                             ("memset_or_copy", ("Memset", "Memcpy")))}
+    print(f"[{label}] the profiler's records of that replay: {recs} (it "
+          "may drop records; the graph's nodes above are the check)")
+    x8, y8 = xs[:LENET_BATCH], ys[:LENET_BATCH]
+    loop = _profile_step(
+        lambda: step(loops[0], x8, y8, prng.fold_in(k_train, 10 ** 6)),
+        f"one {name} loop step")
+    results[label] = dict(policy=policy, steps=LENET_STEPS, tiles_equal=True,
+                          loop_deterministic=True, launches=counts,
+                          per_replay=prog.captured,
+                          capture_s=build_s, key_tape=dict(
+                              derivations=n_keys - 1, seeds=n_seeds,
+                              max_abs_err=err),
+                          graph_nodes=census, replay_records=recs,
+                          rates=rate, replayed_step=replay, loop_step=loop)
+    return tape, prog
+
+
+def lenet_engines(results):
+    for name, policy in ENGINE_POLICIES:
+        tape, prog = engine_parity(name, policy, results)
+        if name == "fused":
+            key_schedule_time(results, tape, prog)
+
+
+def key_schedule_time(results, tape, prog):
+    """The key-schedule kernel at the FUSED step's tape: its time, its plain
+    evaluator's (host Python), its bound; its check row (the largest
+    difference of g2's table comparisons)."""
+    from repro_torch.kernels import key_schedule as ks
+    n_ops, n_seeds = len(tape.recorded[0]), len(tape.recorded[2])
+    counter = prog.ctr[1]
+    # bytes: base, counter, the tape (parent, data, level, seed slots),
+    # keys and seeds out; operations: 77 integer operations per threefry
+    # block (20 rounds of add, rotate, xor; 5 key injections; 2 initial
+    # adds) and 14 per seed (two splitmix32 finalizers), each charged as
+    # one operation at the fp32 rate (no int32 peak is used here; the
+    # card's int32 rate is lower, so this bound is a lower one)
+    byts = 16 + 8 + 12 * n_ops + 4 * n_seeds + 16 * (n_ops + 1) + 8 * n_seeds
+    int_ops = 77 * (n_ops + 1) + 14 * n_seeds
+    _time_row(results.setdefault("times", []), "key_schedule",
+              "LeNet FUSED step",
+              lambda: ks.key_schedule(tape, prog.base, counter),
+              lambda: ks.evaluate_plain(tape, (0, 2), 0), None, byts,
+              int_ops, 0.0, batch=None)
+    results.setdefault("checks", []).append(dict(
+        kernel="key_schedule", case="LeNet FUSED step, 20 steps",
+        max_abs_err=float(results["engine_fused"]["key_tape"]["max_abs_err"]),
+        tol=0.0))
+
+
+# ---------------------------------------------------------------------------
 # (h) learning
 # ---------------------------------------------------------------------------
 
@@ -1281,10 +1512,12 @@ def lenet_learning(results):
     from repro_torch.train import cnn
     cfg = lenet.LeNetConfig.from_policy(presets.parse_policy(LEARN))
     r = cnn.train(cfg, epochs=2, batch=LENET_BATCH, n_train=1024,
-                  n_test=256, seed=0, device=DEV)
-    print(f"[learn] {LEARN}: test error per epoch {r['test_error']}, "
-          f"{r['steps_per_sec']:.1f} steps/s (training and evaluation)")
-    results["learn"] = dict(policy=LEARN, test_error=r["test_error"],
+                  n_test=256, seed=0, device=DEV, engine="scan")
+    print(f"[learn] {LEARN}, engine {r['engine']}: test error per epoch "
+          f"{r['test_error']}, {r['steps_per_sec']:.1f} steps/s (training "
+          "and evaluation, the graphs' capture included)")
+    results["learn"] = dict(policy=LEARN, engine=r["engine"],
+                            test_error=r["test_error"],
                             steps_per_s=r["steps_per_sec"],
                             seconds=r["wallclock_s"])
     check(r["final_error"] < 0.4,
@@ -1309,8 +1542,8 @@ def _one_step(params, x, y, key, cfg):
     import torch
     from repro_torch.models import lenet
     from repro_torch.optim import optimizers
-    from repro_torch.train import cnn
-    ws = cnn.trainable(params)
+    from repro_torch.train import engine
+    ws = engine.trainable(params)
     x = x.clone().requires_grad_()
     logits = lenet.apply(params, x, key, cfg)
     logp = torch.log_softmax(logits, dim=-1)
@@ -1761,12 +1994,13 @@ def _time_row(rows, kernel, shape, fk, fp, flib, byts, flops, count_ops,
     bound_ms, bound_by = _bound(byts, flops, count_ops, flop_rate)
     row = dict(kernel=kernel, shape=shape, batch=batch,
                **_kernel_time(fk), plain_ms=_event_ms(fp),
-               library_ms=_event_ms(flib), bound_ms=bound_ms,
-               bound_by=bound_by)
+               library_ms=None if flib is None else _event_ms(flib),
+               bound_ms=bound_ms, bound_by=bound_by)
     rows.append(row)
+    lib = ("none" if flib is None else f"{row['library_ms']:.4f} ms")
     print(f"[time] {kernel:<15} {shape:<12} {_time_text(row)} bound "
-          f"{bound_ms:.5f} ms ({bound_by}) plain {row['plain_ms']:.4f} ms "
-          f"library {row['library_ms']:.4f} ms")
+          f"{bound_ms:.3g} ms ({bound_by}) plain {row['plain_ms']:.4f} ms "
+          f"library {lib}")
 
 
 def training_kernel_times(results):
@@ -1979,6 +2213,7 @@ PHASES = [
      smoke_reference_qwen3),
     ("f", "training kernels vs plain versions", training_kernels_vs_plain),
     ("g", "LeNet training on the card", lenet_training),
+    ("g2", "the epoch engine: graphed steps vs the loop", lenet_engines),
     ("h", "learning", lenet_learning),
     ("r2", "one training step, card vs CPU", step_reference),
     ("e", "kernel times", kernel_times_all),

@@ -140,7 +140,8 @@ def um_factors_from_max(x_max: Optional[Tensor], d_max: Optional[Tensor],
     c = float(amplification_factors(cfg, lr))
     if not cfg.update_management:
         dev = device if x_max is None else x_max.device
-        t = torch.tensor(c, dtype=cfg.dtype, device=dev)
+        # a fill, not a copy from the host: capturable in a CUDA graph
+        t = torch.full((), c, dtype=cfg.dtype, device=dev)
         return t, t
     x_max = torch.clamp_min(x_max, _EPS)
     d_max = torch.clamp_min(d_max, _EPS)

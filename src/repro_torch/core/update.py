@@ -40,11 +40,12 @@ def pulse_probabilities(v: Tensor, gain: Tensor) -> Tuple[Tensor, Tensor]:
     return torch.clamp(torch.abs(gain * v), 0.0, 1.0), torch.sign(v)
 
 
-def signed_streams(seed: int, v: Tensor, gain: Tensor, bl: int, *,
+def signed_streams(seed: fastrng.Seed, v: Tensor, gain: Tensor, bl: int, *,
                    row_offset: Optional[int] = None) -> Tensor:
     """Signed pulse streams ``(..., BL, n)`` of the drivers ``v (..., n)``
-    from the u32 ``seed`` word; ``row_offset`` shifts the counters by that
-    many rows of a larger logical batch."""
+    from the u32 ``seed`` word (an int, or a 0-d int64 tensor on ``v``'s
+    device); ``row_offset`` shifts the counters by that many rows of a
+    larger logical batch."""
     p, sgn = pulse_probabilities(v, gain)
     n = v.shape[-1]
     shape = (*v.shape[:-1], bl, n)
@@ -78,7 +79,7 @@ def coincidence_counts(streams_rows: Tensor, streams_cols: Tensor
 
 
 def counts_to_dw(count_up: Tensor, count_dn: Tensor, dw_up: Tensor,
-                 dw_dn: Tensor, seed: int, ctoc: float) -> Tensor:
+                 dw_dn: Tensor, seed: fastrng.Seed, ctoc: float) -> Tensor:
     """Physical ``DW`` from the counts under the maps ``dw_up``, ``dw_dn``,
     plus cycle-to-cycle variation ``ctoc sqrt(up dw_up^2 + dn dw_dn^2) xi``
     with ``xi`` the counter-hash normal of the u32 ``seed`` at the flat
@@ -87,7 +88,7 @@ def counts_to_dw(count_up: Tensor, count_dn: Tensor, dw_up: Tensor,
     if ctoc > 0.0:
         e = torch.arange(dw.numel(), dtype=torch.int64,
                          device=dw.device).reshape(dw.shape)
-        xi = fastrng.normal_at(fastrng.mix_int(int(seed)), e, dw.numel())
+        xi = fastrng.normal_at(fastrng.mix_seed(seed), e, dw.numel())
         var = count_up * dw_up ** 2 + count_dn * dw_dn ** 2
         dw = dw + ctoc * torch.sqrt(var) * xi
     return dw

@@ -65,6 +65,18 @@ struct ReadArgs {
   uint32_t row_offset, n_total;
 };
 
+// A u32 seed word: the value ``v``, or, when ``at`` is set, the word a key
+// schedule (key_schedule.cu) left in device memory (zero-extended in a
+// 64-bit entry), read when the kernel runs, so that a captured launch
+// follows the table.
+struct Seed {
+  uint32_t v;
+  const unsigned long long* at;
+  __device__ __forceinline__ uint32_t mixed() const {
+    return mix32(at ? static_cast<uint32_t>(*at) : v);
+  }
+};
+
 // One physical read of a segment sum: noise, saturation flag, clip
 // (INLINE: the noise through normal_value, else normal_at).
 template <bool INLINE = false>

@@ -151,7 +151,7 @@ struct Args {
   // transpose read: x = delta (B, K = m_phys), out_dim = n_cols
   ReadArgs a;
   const float* nm;
-  uint32_t seed1, seed2;
+  Seed seed1, seed2;  // the two reads'
   int two_phase;
   float retry_scale;
   float* z;
@@ -171,7 +171,8 @@ struct Args {
   int slot_len, slot_parts, sum_planes;
   const float* gx;
   const float* gd;
-  uint32_t seed_a, seed_b, row0;
+  Seed seed_a, seed_b;  // the two streams'
+  uint32_t row0;
   int bl;
 };
 
@@ -231,7 +232,7 @@ __device__ __forceinline__ void read_block(const Args& p, float* smem,
   if (threadIdx.x < BM) rowf[threadIdx.x] = 0;
   __syncthreads();
   const int rows = min(BM, a.B - m0), cols = min(BN, a.out_dim - n0);
-  const uint32_t seed1_m = mix32(p.seed1), seed2_m = mix32(p.seed2);
+  const uint32_t seed1_m = p.seed1.mixed(), seed2_m = p.seed2.mixed();
 #pragma unroll 2  // the draws of two outputs overlap
   for (int idx = threadIdx.x; idx < rows * cols; idx += THREADS) {
     const int r = idx / cols, c = idx - r * cols;
@@ -304,7 +305,7 @@ __device__ __forceinline__ void count_part(const Args& p, const AV& av,
   const int q0 = part * p.slot_len, q1 = min(c.T, q0 + p.slot_len);
   const GenStreams<AV> src{av,          p.a.x,          c.M,
                            c.N,         p.bl,           p.row0,
-                           mix32(p.seed_a), mix32(p.seed_b), __ldg(p.gx),
+                           p.seed_a.mixed(), p.seed_b.mixed(), __ldg(p.gx),
                            __ldg(p.gd)};
   int up[CL::DM][4], dn[CL::DM][4];
   count_range<THREADS>(c, src, m0, n0, q0, q1, stage, up, dn);
@@ -378,10 +379,9 @@ int launch(const float* w, const float* d, AV av, const float* nm,
            const float* gx, const float* gd, float* z, uint8_t* residual,
            float* counts, int* flags, float* part, int B, int m_phys,
            int n_cols, int bl, float sigma, float alpha, int has_alpha,
-           unsigned rseed1, unsigned rseed2, int two_phase,
-           float retry_scale, unsigned seed_a, unsigned seed_b,
-           unsigned row0, int one, int read_len, int slot_len,
-           int sum_planes, cudaStream_t s) {
+           Seed rseed1, Seed rseed2, int two_phase, float retry_scale,
+           Seed seed_a, Seed seed_b, unsigned row0, int one, int read_len,
+           int slot_len, int sum_planes, cudaStream_t s) {
   using fused::BM;
   using fused::BN;
   if (B < 0 || m_phys <= 0 || n_cols <= 0 || bl <= 0 || read_len <= 0 ||
@@ -439,7 +439,9 @@ int launch(const float* w, const float* d, AV av, const float* nm,
 // Dense entry.  w (m_phys, n_cols), d (B, m_phys) replicated error, x (B,
 // n_cols) activations, nm (B,) NM scale of d, gx/gd the device scalars C_x
 // and C_d.  Outputs: z (B, n_cols) on physical columns, residual (B,)
-// bytes, counts (2, m_phys, n_cols) f32 (up, dn).
+// bytes, counts (2, m_phys, n_cols) f32 (up, dn).  The *_at pointers: the
+// two read seeds and the two stream seeds in device memory (null: the
+// value arguments), as managed_mvm_launch takes them.
 extern "C" int bwd_update_dense_launch(
     const float* w, const float* d, const float* x, const float* nm,
     const float* gx, const float* gd, float* z, uint8_t* residual,
@@ -447,12 +449,15 @@ extern "C" int bwd_update_dense_launch(
     int bl, float sigma, float alpha, int has_alpha, unsigned rseed1,
     unsigned rseed2, int two_phase, float retry_scale, unsigned seed_a,
     unsigned seed_b, unsigned row0, int one, int read_len, int slot_len,
-    int sum_planes, void* stream) {
+    int sum_planes, const unsigned long long* rseed1_at,
+    const unsigned long long* rseed2_at, const unsigned long long* seed_a_at,
+    const unsigned long long* seed_b_at, void* stream) {
   return analog::launch(w, d, analog::DenseA{x, n_cols}, nm, gx, gd, z,
                         residual, counts, flags, part, B, m_phys, n_cols, bl,
-                        sigma, alpha, has_alpha, rseed1, rseed2, two_phase,
-                        retry_scale, seed_a, seed_b, row0, one, read_len,
-                        slot_len, sum_planes,
+                        sigma, alpha, has_alpha, {rseed1, rseed1_at},
+                        {rseed2, rseed2_at}, two_phase, retry_scale,
+                        {seed_a, seed_a_at}, {seed_b, seed_b_at}, row0, one,
+                        read_len, slot_len, sum_planes,
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -467,12 +472,15 @@ extern "C" int bwd_update_conv_launch(
     int bl, float sigma, float alpha, int has_alpha, unsigned rseed1,
     unsigned rseed2, int two_phase, float retry_scale, unsigned seed_a,
     unsigned seed_b, int one, int read_len, int slot_len, int sum_planes,
+    const unsigned long long* rseed1_at, const unsigned long long* rseed2_at,
+    const unsigned long long* seed_a_at, const unsigned long long* seed_b_at,
     void* stream) {
   return analog::launch(w, d, analog::ConvA{analog::conv_geom(xpad, geom)},
                         nm, gx, gd, z, residual, counts, flags, part,
                         analog::conv_positions(geom), m_phys,
                         analog::conv_cols(geom), bl, sigma, alpha, has_alpha,
-                        rseed1, rseed2, two_phase, retry_scale, seed_a,
-                        seed_b, 0u, one, read_len, slot_len, sum_planes,
+                        {rseed1, rseed1_at}, {rseed2, rseed2_at}, two_phase,
+                        retry_scale, {seed_a, seed_a_at}, {seed_b, seed_b_at},
+                        0u, one, read_len, slot_len, sum_planes,
                         static_cast<cudaStream_t>(stream));
 }

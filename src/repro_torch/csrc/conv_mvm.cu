@@ -60,7 +60,7 @@ __host__ __device__ constexpr int conv_nx() {
 template <int BM, int BN, bool ONE>
 __global__ void __launch_bounds__((BM / CONV_TM) * (BN / CONV_TM))
     conv_read_kernel(ReadArgs a, ConvGeomDev g, const float* __restrict__ nm,
-                     uint32_t seed1, uint32_t seed2, int two_phase,
+                     Seed seed1, Seed seed2, int two_phase,
                      float retry_scale, int d_avg, float* __restrict__ y,
                      uint8_t* __restrict__ residual, float* acc1,
                      float* acc2, float* pp, int* sat1, int* sat2,
@@ -108,7 +108,7 @@ __global__ void __launch_bounds__((BM / CONV_TM) * (BN / CONV_TM))
       }
     }
   }
-  const uint32_t seed1_m = mix32(seed1), seed2_m = mix32(seed2);
+  const uint32_t seed1_m = seed1.mixed(), seed2_m = seed2.mixed();
   const int out_f = a.out_dim / d_avg;
   float* st1 = smem;
   float* st2 = smem + BM * LD;
@@ -207,9 +207,9 @@ struct Scratch {
 
 template <int BM, int BN, bool ONE>
 int launch(const analog::ReadArgs& a, const analog::ConvGeomDev& geom,
-           const float* nm, uint32_t seed1, uint32_t seed2, int two_phase,
-           float retry_scale, int d_avg, float* y, uint8_t* residual,
-           int parts, const Scratch& sc, cudaStream_t s) {
+           const float* nm, analog::Seed seed1, analog::Seed seed2,
+           int two_phase, float retry_scale, int d_avg, float* y,
+           uint8_t* residual, int parts, const Scratch& sc, cudaStream_t s) {
   if (ONE && a.out_dim > BN) return static_cast<int>(cudaErrorInvalidValue);
   using X = analog::ConvX<g::conv_nx<BM, BN>()>;
   using T = g::Tile<BM, BN, false, false, X, g::CONV_TM>;
@@ -239,12 +239,15 @@ int launch(const analog::ReadArgs& a, const analog::ConvGeomDev& geom,
 // out_phys), acc2 (the same; when two_phase), the partial planes (parts,
 // P, out_phys)], and flags, int32 [4 unused, sat1[P], sat2[P], a ticket per
 // row tile, a ticket per tile], zero on entry and left zero on return.
+// seed1_at/seed2_at: the read seeds in device memory (null: by value), as
+// managed_mvm_launch takes them.
 extern "C" int conv_managed_mvm_launch(
     const float* w, const float* xpad, const int* geom, const float* nm,
     float* y, uint8_t* residual, float* part, int* flags, int out_phys,
     int d_avg, float sigma, float alpha, int has_alpha, unsigned seed1,
     unsigned seed2, int two_phase, float retry_scale, int tile_m,
-    int tile_n, int one, int parts, void* stream) {
+    int tile_n, int one, int parts, const unsigned long long* seed1_at,
+    const unsigned long long* seed2_at, void* stream) {
   const int P = analog::conv_positions(geom);
   const int cols = analog::conv_cols(geom);
   if (P <= 0) return 0;
@@ -254,6 +257,7 @@ extern "C" int conv_managed_mvm_launch(
   const analog::ReadArgs a{w,    nullptr,   P,     cols,  out_phys,
                            1,    cols,      0,     sigma, alpha,
                            has_alpha, 0u, (uint32_t)P * (uint32_t)out_phys};
+  const analog::Seed s1{seed1, seed1_at}, s2{seed2, seed2_at};
   const analog::ConvGeomDev gd = analog::conv_geom(xpad, geom);
   const size_t n = (size_t)P * out_phys;
   const int row_tiles = (P + tile_m - 1) / tile_m;
@@ -270,7 +274,7 @@ extern "C" int conv_managed_mvm_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CONV_LAUNCH(BM, BN, ONE)                                             \
   if (tile_m == BM && tile_n == BN && one == ONE)                            \
-    return launch<BM, BN, ONE>(a, gd, nm, seed1, seed2, two_phase,           \
+    return launch<BM, BN, ONE>(a, gd, nm, s1, s2, two_phase,                 \
                                retry_scale, d_avg, y, residual, parts, sc, s);
   CONV_LAUNCH(64, 16, true)
   CONV_LAUNCH(32, 32, true)

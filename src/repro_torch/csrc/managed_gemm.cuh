@@ -458,8 +458,8 @@ struct Tile {
 // epilogue adds the planes in segment order.
 template <int BM, int BN, bool VEC, bool TRANS>
 __global__ void __launch_bounds__((BM / 8) * (BN / 8), 2)
-    tile_kernel(ReadArgs a, const float* __restrict__ nm, uint32_t seed1,
-                uint32_t seed2, int two_phase, float retry_scale,
+    tile_kernel(ReadArgs a, const float* __restrict__ nm, Seed seed1,
+                Seed seed2, int two_phase, float retry_scale,
                 float* __restrict__ acc1, float* __restrict__ acc2,
                 int* __restrict__ sat1, int* __restrict__ sat2) {
   using T = Tile<BM, BN, VEC, TRANS>;
@@ -471,7 +471,7 @@ __global__ void __launch_bounds__((BM / 8) * (BN / 8), 2)
   const int ke = min(a.K, ks + a.seg_len);
   float acc[8][8];
   T::segment(smem, a, m0, n0, ks, ke, acc);
-  const uint32_t seed1_m = mix32(seed1), seed2_m = mix32(seed2);
+  const uint32_t seed1_m = seed1.mixed(), seed2_m = seed2.mixed();
   uint32_t f1 = 0, f2 = 0;  // bit i: owned row i saturated
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -709,13 +709,13 @@ struct ManagedGemvRead {
 // the outputs, and the last block to finish clears the flags.
 template <int NCW, bool VEC>
 __global__ void __launch_bounds__(GW * 32) gemv_kernel(
-    ReadArgs a, const float* __restrict__ nm, uint32_t seed1, uint32_t seed2,
+    ReadArgs a, const float* __restrict__ nm, Seed seed1, Seed seed2,
     int two_phase, float retry_scale, float* acc1, float* acc2, int* sat1,
     int* sat2, int* ticket, float* __restrict__ y,
     uint8_t* __restrict__ residual, int d_avg) {
   const int lane = threadIdx.x & 31;
-  ManagedGemvRead rd{a,         nm,   mix32(seed1), mix32(seed2),
-                     two_phase, retry_scale, acc1, acc2};
+  ManagedGemvRead rd{a,         nm,          seed1.mixed(), seed2.mixed(),
+                     two_phase, retry_scale, acc1,          acc2};
   gemv_walk<NCW, VEC>(a, rd);
   const uint32_t r1 = ballot_rows(rd.r1), r2 = ballot_rows(rd.r2);
   if (lane < a.B) {

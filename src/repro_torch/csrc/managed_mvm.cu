@@ -31,11 +31,12 @@
 namespace {
 
 using analog::ReadArgs;
+using analog::Seed;
 namespace g = analog::gemm;
 
 template <int BM, int BN, bool VEC, bool TRANS>
-int launch_tile(const ReadArgs& a, const float* nm, uint32_t seed1,
-                uint32_t seed2, int two_phase, float retry_scale, float* acc1,
+int launch_tile(const ReadArgs& a, const float* nm, Seed seed1, Seed seed2,
+                int two_phase, float retry_scale, float* acc1,
                 float* acc2, int* sat1, int* sat2, cudaStream_t s) {
   using T = g::Tile<BM, BN, VEC, TRANS>;
   auto kern = g::tile_kernel<BM, BN, VEC, TRANS>;
@@ -49,8 +50,8 @@ int launch_tile(const ReadArgs& a, const float* nm, uint32_t seed1,
 }
 
 template <int BM, int BN>
-int launch_tile_v(const ReadArgs& a, int vec, const float* nm, uint32_t s1,
-                  uint32_t s2, int tp, float rs, float* acc1, float* acc2,
+int launch_tile_v(const ReadArgs& a, int vec, const float* nm, Seed s1,
+                  Seed s2, int tp, float rs, float* acc1, float* acc2,
                   int* sat1, int* sat2, cudaStream_t s) {
   if (vec)
     return a.transpose ? launch_tile<BM, BN, true, true>(
@@ -64,7 +65,7 @@ int launch_tile_v(const ReadArgs& a, int vec, const float* nm, uint32_t s1,
 }
 
 template <int NCW, bool VEC>
-int launch_gemv(ReadArgs a, const float* nm, uint32_t s1, uint32_t s2, int tp,
+int launch_gemv(ReadArgs a, const float* nm, Seed s1, Seed s2, int tp,
                 float rs, float* acc1, float* acc2, int* sat1, int* sat2,
                 int* ticket, float* y, uint8_t* residual, int d_avg,
                 cudaStream_t s) {
@@ -84,8 +85,8 @@ int launch_gemv(ReadArgs a, const float* nm, uint32_t s1, uint32_t s2, int tp,
 }
 
 template <int NCW>
-int launch_gemv_v(const ReadArgs& a, int vec, const float* nm, uint32_t s1,
-                  uint32_t s2, int tp, float rs, float* acc1, float* acc2,
+int launch_gemv_v(const ReadArgs& a, int vec, const float* nm, Seed s1,
+                  Seed s2, int tp, float rs, float* acc1, float* acc2,
                   int* sat1, int* sat2, int* ticket, float* y,
                   uint8_t* residual, int d_avg, cudaStream_t s) {
   return vec ? launch_gemv<NCW, true>(a, nm, s1, s2, tp, rs, acc1, acc2, sat1,
@@ -104,6 +105,9 @@ int launch_gemv_v(const ReadArgs& a, int vec, const float* nm, uint32_t s1,
 // left zero on return; cap >= B.  The plan (path 0: gemv with ncw outputs per
 // warp; path 1: tile_m x tile_n tiles; vec: 16-byte aligned rows of x and W)
 // comes from the wrapper's plan(); shapes it does not allow are refused.
+// seed1_at/seed2_at: the read seeds in device memory (a key schedule's seed
+// table, read when the kernel runs, so a captured launch follows it); null:
+// seed1/seed2 by value.
 extern "C" int managed_mvm_launch(
     const float* w, const float* x, const float* nm, float* y,
     uint8_t* residual, float* acc1, float* acc2, int* scratch, int cap,
@@ -111,6 +115,7 @@ extern "C" int managed_mvm_launch(
     int transpose, float sigma, float alpha, int has_alpha, unsigned seed1,
     unsigned seed2, int two_phase, float retry_scale, unsigned row_offset,
     unsigned n_total, int path, int tile_m, int tile_n, int ncw, int vec,
+    const unsigned long long* seed1_at, const unsigned long long* seed2_at,
     void* stream) {
   if (B <= 0) return 0;
   if (cap < B || d_avg <= 0 || out_phys % d_avg != 0)
@@ -118,6 +123,7 @@ extern "C" int managed_mvm_launch(
   const ReadArgs a{w,     x,         B,     K,     out_phys,   n_seg,
                    seg_len, transpose, sigma, alpha, has_alpha,
                    row_offset, n_total};
+  const Seed s1{seed1, seed1_at}, s2{seed2, seed2_at};
   int* ticket = scratch;
   int* sat1 = scratch + 4;
   int* sat2 = scratch + 4 + cap;
@@ -127,11 +133,11 @@ extern "C" int managed_mvm_launch(
       return static_cast<int>(cudaErrorInvalidValue);
     switch (ncw) {
       case 1:
-        return launch_gemv_v<1>(a, vec, nm, seed1, seed2, two_phase,
+        return launch_gemv_v<1>(a, vec, nm, s1, s2, two_phase,
                               retry_scale, acc1, acc2, sat1, sat2, ticket, y,
                               residual, d_avg, s);
       case 2:
-        return launch_gemv_v<2>(a, vec, nm, seed1, seed2, two_phase,
+        return launch_gemv_v<2>(a, vec, nm, s1, s2, two_phase,
                               retry_scale, acc1, acc2, sat1, sat2, ticket, y,
                               residual, d_avg, s);
     }
@@ -139,10 +145,10 @@ extern "C" int managed_mvm_launch(
   }
   int err;
   if (tile_m == 128 && tile_n == 128)
-    err = launch_tile_v<128, 128>(a, vec, nm, seed1, seed2, two_phase,
+    err = launch_tile_v<128, 128>(a, vec, nm, s1, s2, two_phase,
                                   retry_scale, acc1, acc2, sat1, sat2, s);
   else if (tile_m == 64 && tile_n == 128)
-    err = launch_tile_v<64, 128>(a, vec, nm, seed1, seed2, two_phase,
+    err = launch_tile_v<64, 128>(a, vec, nm, s1, s2, two_phase,
                                  retry_scale, acc1, acc2, sat1, sat2, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);

@@ -22,7 +22,8 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 KERNELS = ("noisy_mvm", "managed_mvm", "conv_mvm", "pulse_counts",
-           "pulse_update", "bwd_update_mvm", "flash_attention")
+           "pulse_update", "bwd_update_mvm", "flash_attention",
+           "key_schedule")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

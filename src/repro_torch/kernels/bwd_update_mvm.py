@@ -42,7 +42,7 @@ from repro_torch.core import update as update_lib
 from repro_torch.core.conv_mapping import gather_columns
 from repro_torch.kernels import build
 from repro_torch.kernels.conv_mvm import geom_array
-from repro_torch.kernels.gemm import SMS, scratch
+from repro_torch.kernels.gemm import SMS, scratch, seed_arg
 from repro_torch.kernels.managed_mvm import managed_mvm_plain
 from repro_torch.kernels.noisy_mvm import check_operands
 
@@ -186,7 +186,8 @@ def plan(rows: int, m_phys: int, n_cols: int, bl: int,
 _TAIL = [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
          ctypes.c_uint32, ctypes.c_int, ctypes.c_float, ctypes.c_uint32,
          ctypes.c_uint32]
-_PLAN = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the plan, the four seed addresses, the stream
+_PLAN = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
 
 
 def _lib(entry: str):
@@ -231,11 +232,17 @@ def _prepare(rows: int, m_phys: int, n_cols: int, bl: int, two_phase: bool,
     return p, z, residual, counts, ptrs, stream
 
 
-def _read_args(sigma, alpha, read_seeds, two_phase, retry_scale, upd_seeds):
-    return (float(sigma), float(alpha), int(math.isfinite(alpha)),
-            int(read_seeds[0]) & _M32, int(read_seeds[1]) & _M32,
-            int(two_phase), float(retry_scale), int(upd_seeds[0]) & _M32,
-            int(upd_seeds[1]) & _M32)
+def _seeds(read_seeds, upd_seeds, dev):
+    """The four seed words (two reads', two streams') as ``(values,
+    addresses)``: ints by value, device words by address."""
+    args = [seed_arg(s, dev) for s in (*read_seeds[:2], *upd_seeds[:2])]
+    return [a[0] for a in args], [a[1] for a in args]
+
+
+def _read_args(sigma, alpha, seeds, two_phase, retry_scale):
+    r1, r2, sa, sb = seeds
+    return (float(sigma), float(alpha), int(math.isfinite(alpha)), r1, r2,
+            int(two_phase), float(retry_scale), sa, sb)
 
 
 def _check(rc: int, what: str) -> None:
@@ -252,10 +259,11 @@ def bwd_update_mvm(w: torch.Tensor, d2d: torch.Tensor, x2d: torch.Tensor,
     managed transpose read of the replicated errors ``d2d`` (B, m_phys)
     with NM scale ``nm_s`` (B, 1) and two read seeds, and the counts of the
     streams of ``x2d`` (B, n_cols) and ``-d2d`` with ``upd_seeds`` (seed of
-    k_a, seed of k_b, row offset) and ``gains`` = (C_x, C_d) on the device
-    (two 0-d tensors or one (2,) tensor).  Returns ``(z (B, n_cols),
-    residual (B,) bool, count_up, count_dn)`` with ``z`` on physical
-    columns and counts ``(m_phys, n_cols)``."""
+    k_a, seed of k_b, row offset; every seed an int or a device word, as
+    ``managed_mvm.managed_mvm`` takes them) and ``gains`` = (C_x, C_d) on
+    the device (two 0-d tensors or one (2,) tensor).  Returns ``(z (B,
+    n_cols), residual (B,) bool, count_up, count_dn)`` with ``z`` on
+    physical columns and counts ``(m_phys, n_cols)``."""
     global launches
     m_phys, n_cols = w.shape
     b = d2d.shape[0]
@@ -271,13 +279,13 @@ def bwd_update_mvm(w: torch.Tensor, d2d: torch.Tensor, x2d: torch.Tensor,
     check_operands(w, d2d, x2d, nm, *gt)
     p, z, residual, counts, ptrs, stream = _prepare(
         b, m_phys, n_cols, bl, two_phase, w, gt)
+    values, at = _seeds(read_seeds, upd_seeds, w.device)
     rc = _lib("bwd_update_dense_launch")(
         w.data_ptr(), d2d.data_ptr(), x2d.data_ptr(), nm.data_ptr(), *ptrs,
         b, m_phys, n_cols, int(bl),
-        *_read_args(sigma, alpha, read_seeds, two_phase, retry_scale,
-                    upd_seeds),
+        *_read_args(sigma, alpha, values, two_phase, retry_scale),
         int(upd_seeds[2]) & _M32, int(p.one), p.read_len, p.slot_len,
-        int(p.sum_planes), stream)
+        int(p.sum_planes), *at, stream)
     _check(rc, "bwd_update_mvm")
     launches += 1
     return z, residual, counts[0], counts[1]
@@ -311,13 +319,13 @@ def conv_bwd_update(w: torch.Tensor, xpad: torch.Tensor,
     check_operands(w, delta_rep, xpad, nm, *gt)
     tp, z, residual, counts, ptrs, stream = _prepare(
         p, m_phys, n_cols, bl, two_phase, w, gt)
+    values, at = _seeds(read_seeds, upd_seeds, w.device)
     rc = _lib("bwd_update_conv_launch")(
         w.data_ptr(), delta_rep.data_ptr(), xpad.data_ptr(),
         ctypes.addressof(geom_array(geom)), nm.data_ptr(), *ptrs, m_phys,
-        int(bl),
-        *_read_args(sigma, alpha, read_seeds, two_phase, retry_scale,
-                    upd_seeds),
-        int(tp.one), tp.read_len, tp.slot_len, int(tp.sum_planes), stream)
+        int(bl), *_read_args(sigma, alpha, values, two_phase, retry_scale),
+        int(tp.one), tp.read_len, tp.slot_len, int(tp.sum_planes), *at,
+        stream)
     _check(rc, "conv_bwd_update")
     conv_launches += 1
     return z, residual, counts[0], counts[1]

@@ -30,9 +30,10 @@ import torch
 
 from repro_torch.core import management
 from repro_torch.kernels import build
-from repro_torch.kernels.gemm import SMS, scratch
+from repro_torch.kernels.gemm import SMS, scratch, seed_arg
 from repro_torch.kernels.managed_mvm import managed_mvm_plain
 from repro_torch.kernels.noisy_mvm import check_operands
+from repro_torch.utils import fastrng
 
 _M32 = 0xFFFFFFFF
 
@@ -81,7 +82,8 @@ def tap_major_weights(w: torch.Tensor, geom) -> torch.Tensor:
 
 
 def conv_managed_mvm_plain(w: torch.Tensor, xpad: torch.Tensor, geom,
-                           nm_s: torch.Tensor, seeds: Sequence[int], *,
+                           nm_s: torch.Tensor,
+                           seeds: Sequence[fastrng.Seed], *,
                            sigma: float, alpha: float,
                            two_phase: bool = False, retry_scale: float = 16.0,
                            d_avg: int = 1
@@ -149,20 +151,21 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
             ctypes.c_uint32, ctypes.c_int, ctypes.c_float] + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p]
+            ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
     return fn
 
 
 def conv_managed_mvm(w: torch.Tensor, xpad: torch.Tensor, geom,
-                     nm_s: torch.Tensor, seeds: Sequence[int], *,
+                     nm_s: torch.Tensor, seeds: Sequence[fastrng.Seed], *,
                      sigma: float, alpha: float, two_phase: bool = False,
                      retry_scale: float = 16.0, d_avg: int = 1
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Managed conv read of ``w`` (d_avg * out_f, C*kh*kw [+1]) over the
     padded volume ``xpad`` (B, H, W, C) with the per-position scale ``nm_s``
-    (P, 1) and the two u32 read seeds.  Returns ``y`` (P, out_f) and the
-    residual flag (P,) bool, P = B*OH*OW."""
+    (P, 1) and the two u32 read seeds (ints or device words, as
+    ``managed_mvm.managed_mvm`` takes them).  Returns ``y`` (P, out_f) and
+    the residual flag (P,) bool, P = B*OH*OW."""
     global launches
     out_phys = w.shape[0]
     if w.dim() != 2 or w.shape[1] != geom.cols:
@@ -194,13 +197,14 @@ def conv_managed_mvm(w: torch.Tensor, xpad: torch.Tensor, geom,
                          ((2 if two_phase else 1)
                           + (tp.parts if tp.parts > 1 else 0)) * n)
         flags, part = fl.data_ptr(), pt.data_ptr()
+    (s1, s1_at), (s2, s2_at) = (seed_arg(s, dev) for s in seeds[:2])
     rc = _lib()(
         w.data_ptr(), xpad.data_ptr(), ctypes.addressof(geom_array(geom)),
         nm_s.data_ptr(), y.data_ptr(), residual.data_ptr(), part, flags,
         out_phys, d_avg, float(sigma), float(alpha),
-        int(math.isfinite(alpha)), int(seeds[0]) & _M32,
-        int(seeds[1]) & _M32, int(two_phase), float(retry_scale),
-        tp.tile_m, tp.tile_n, int(tp.one), tp.parts, stream)
+        int(math.isfinite(alpha)), s1, s2, int(two_phase),
+        float(retry_scale), tp.tile_m, tp.tile_n, int(tp.one), tp.parts,
+        s1_at, s2_at, stream)
     if rc != 0:
         raise RuntimeError(f"conv_mvm kernel launch failed: CUDA error {rc}")
     launches += 1

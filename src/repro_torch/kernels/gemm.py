@@ -6,13 +6,19 @@ product.  Each keeps its per-row saturation flags and last-block tickets in
 an int32 scratch that every call leaves zeroed, and its partial sums in a
 float32 scratch; reads on one stream run in order, so they share one
 scratch per (device, stream).  Reads on two streams must not.
+
+:func:`seed_arg` passes a seed as the managed reads (#2, #3) and the fused
+backward+update (#6, #7) take it: by value, or by its address in device
+memory (``Seed`` in ``csrc/analog_read.cuh``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.utils import fastrng
 
 #: Streaming multiprocessors of the H100 (the grid a tile plan fills).
 SMS = 132
@@ -20,6 +26,8 @@ SMS = 132
 GEMV_MAXB = 8
 #: Tile shapes of the tiled path, largest first.
 TILES = ((128, 128), (64, 128))
+
+_M32 = 0xFFFFFFFF
 
 _SCRATCH: Dict[Tuple[torch.device, int],
                Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -57,3 +65,19 @@ def scratch(dev: torch.device, stream: int, ints: int, floats: int
         part = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
     _SCRATCH[(dev, stream)] = (flags, part)
     return flags, part
+
+
+def seed_arg(seed: fastrng.Seed, device: torch.device
+             ) -> Tuple[int, Optional[int]]:
+    """One u32 seed word as the kernels take it: ``(value, address)``.  A
+    Python int goes by value (null address); a 0-d int64 tensor on
+    ``device`` (a key tape's seed, ``utils/prng.py``) by its address, and
+    the kernel reads the word when it runs."""
+    if isinstance(seed, torch.Tensor):
+        if (seed.dtype != torch.int64 or seed.numel() != 1
+                or seed.device != device):
+            raise ValueError(f"a device seed is one int64 word on {device}, "
+                             f"got {seed.dtype} {tuple(seed.shape)} on "
+                             f"{seed.device}")
+        return 0, seed.data_ptr()
+    return int(seed) & _M32, None

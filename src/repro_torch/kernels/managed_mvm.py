@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.gemm import (  # noqa: F401 (the plan's constants)
-    GEMV_MAXB, SMS, TILES, scratch, tile_shape, vec_rows)
+    GEMV_MAXB, SMS, TILES, scratch, seed_arg, tile_shape, vec_rows)
 from repro_torch.kernels.noisy_mvm import (
     check_operands, counters, read_segment, segment_product, segments)
 from repro_torch.utils import fastrng
@@ -68,8 +68,8 @@ def select_and_average(acc1: torch.Tensor, acc2: Optional[torch.Tensor],
 
 
 def managed_mvm_plain(w: torch.Tensor, x2d: torch.Tensor, nm_s: torch.Tensor,
-                      seeds: Sequence[int], *, sigma: float, alpha: float,
-                      n_seg: int = 1, transpose: bool = False,
+                      seeds: Sequence[fastrng.Seed], *, sigma: float,
+                      alpha: float, n_seg: int = 1, transpose: bool = False,
                       two_phase: bool = False, retry_scale: float = 16.0,
                       d_avg: int = 1, row_offset: Optional[int] = None,
                       total_rows: Optional[int] = None
@@ -80,8 +80,8 @@ def managed_mvm_plain(w: torch.Tensor, x2d: torch.Tensor, nm_s: torch.Tensor,
     b = x2d.shape[0]
     total_rows = b if total_rows is None else total_rows
     n_total = (total_rows * n_seg * out_phys) & _M32
-    seed1_m = fastrng.mix_int(int(seeds[0]) & _M32)
-    seed2_m = fastrng.mix_int(int(seeds[1]) & _M32)
+    seed1_m = fastrng.mix_seed(seeds[0])
+    seed2_m = fastrng.mix_seed(seeds[1])
     rows = (torch.arange(b, dtype=torch.int64, device=x2d.device)
             + (0 if row_offset is None else int(row_offset))) & _M32
     s = nm_s.reshape(b, 1).to(torch.float32)
@@ -139,7 +139,7 @@ def plan(b: int, k_dim: int, out_phys: int, transpose: bool,
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
     ctypes.c_uint32, ctypes.c_int, ctypes.c_float, ctypes.c_uint32,
-    ctypes.c_uint32] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    ctypes.c_uint32] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
 
 def _lib():
     lib = build.load("managed_mvm")
@@ -151,7 +151,7 @@ def _lib():
 
 
 def managed_mvm(w: torch.Tensor, x2d: torch.Tensor, nm_s: torch.Tensor,
-                seeds: Sequence[int], *, sigma: float, alpha: float,
+                seeds: Sequence[fastrng.Seed], *, sigma: float, alpha: float,
                 n_seg: int = 1, transpose: bool = False,
                 two_phase: bool = False, retry_scale: float = 16.0,
                 d_avg: int = 1, row_offset: Optional[int] = None,
@@ -159,7 +159,9 @@ def managed_mvm(w: torch.Tensor, x2d: torch.Tensor, nm_s: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Managed read of ``w`` (d_avg * out_f, C) by ``x2d`` (B, C) — or
     (B, R) when ``transpose`` — with ``nm_s`` (B, 1) and the two u32 read
-    seeds.  Returns ``y`` (B, out_f) and the residual flag (B,) bool."""
+    seeds (ints, or 0-d int64 tensors on the device that the kernel reads
+    when it runs).  Returns ``y`` (B, out_f) and the residual flag (B,)
+    bool."""
     global launches
     out_phys = w.shape[1] if transpose else w.shape[0]
     k_dim = w.shape[0] if transpose else w.shape[1]
@@ -198,17 +200,17 @@ def managed_mvm(w: torch.Tensor, x2d: torch.Tensor, nm_s: torch.Tensor,
         acc1 = torch.empty(n_seg, b, out_phys, dtype=torch.float32,
                            device=dev)
         acc2 = torch.empty_like(acc1) if two_phase else acc1
+    (s1, s1_at), (s2, s2_at) = (seed_arg(s, dev) for s in seeds[:2])
     rc = _lib()(
         w.data_ptr(), x2d.data_ptr(), nm.data_ptr(), y.data_ptr(),
         residual.data_ptr(), acc1.data_ptr(), acc2.data_ptr(),
         flags.data_ptr(), (flags.numel() - 4) // 2,
         b, k_dim, out_phys, d_avg, n_seg, -(-k_dim // n_seg), int(transpose),
         float(sigma), float(alpha), int(math.isfinite(alpha)),
-        int(seeds[0]) & _M32, int(seeds[1]) & _M32, int(two_phase),
-        float(retry_scale), int(row_offset or 0) & _M32,
-        (total_rows * n_seg * out_phys) & _M32,
-        int(p.path == "tile"), p.tile_m, p.tile_n, p.ncw, int(p.vec),
-        stream)
+        s1, s2, int(two_phase), float(retry_scale),
+        int(row_offset or 0) & _M32, (total_rows * n_seg * out_phys) & _M32,
+        int(p.path == "tile"), p.tile_m, p.tile_n, p.ncw, int(p.vec), s1_at,
+        s2_at, stream)
     if rc != 0:
         raise RuntimeError(f"managed_mvm kernel launch failed: CUDA error "
                            f"{rc}")

@@ -66,8 +66,8 @@ def counters(rows: torch.Tensor, si: int, n_seg: int, out_dim: int
     return (base[:, None] + cols[None, :]) & _M32
 
 
-def read_segment(v: torch.Tensor, seed_mixed: int, e: torch.Tensor,
-                 n_total: int, sigma: float, alpha: float
+def read_segment(v: torch.Tensor, seed_mixed: fastrng.Seed,
+                 e: torch.Tensor, n_total: int, sigma: float, alpha: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One physical read of a raw-product block: noise at counter ``e``,
     per-row saturation flag, integrator clip."""
@@ -81,9 +81,10 @@ def read_segment(v: torch.Tensor, seed_mixed: int, e: torch.Tensor,
     return v, sat
 
 
-def noisy_mvm_plain(w: torch.Tensor, x2d: torch.Tensor, seed: int, *,
-                    sigma: float, alpha: float, n_seg: int = 1,
-                    transpose: bool = False, row_offset: Optional[int] = None,
+def noisy_mvm_plain(w: torch.Tensor, x2d: torch.Tensor,
+                    seed: fastrng.Seed, *, sigma: float, alpha: float,
+                    n_seg: int = 1, transpose: bool = False,
+                    row_offset: Optional[int] = None,
                     total_rows: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel (same counters, same order)."""
@@ -92,7 +93,7 @@ def noisy_mvm_plain(w: torch.Tensor, x2d: torch.Tensor, seed: int, *,
     b = x2d.shape[0]
     total_rows = b if total_rows is None else total_rows
     n_total = (total_rows * n_seg * out_dim) & _M32
-    seed_m = fastrng.mix_int(int(seed) & _M32)
+    seed_m = fastrng.mix_seed(seed)
     rows = (torch.arange(b, dtype=torch.int64, device=x2d.device)
             + (0 if row_offset is None else int(row_offset))) & _M32
     y = torch.zeros(b, out_dim, dtype=x2d.dtype, device=x2d.device)
@@ -204,6 +205,10 @@ def noisy_mvm(w: torch.Tensor, x2d: torch.Tensor, seed: int, *,
                                n_seg=n_seg, transpose=transpose,
                                row_offset=row_offset, total_rows=total_rows)
     check_operands(w, x2d)
+    if isinstance(seed, torch.Tensor):
+        # only iterative BM reads through here, and its retries are decided
+        # on the host: no captured step reaches this kernel
+        raise TypeError("the raw read takes its seed by value")
     b = x2d.shape[0]
     total_rows = b if total_rows is None else total_rows
     dev = w.device

@@ -3,14 +3,17 @@
 These adapt the config-carrying, arbitrary-batch-shape tile API onto the
 2-D kernel interfaces and keep the JAX package's key -> seed discipline: a
 two-phase managed read consumes ``split(key)`` (one seed per read), a
-single read consumes ``key`` itself (the same seed twice).  Seeds are
-derived on the host and passed to the kernels by value.
+single read consumes ``key`` itself (the same seed twice).  A host key's
+seeds go to the kernels by value; a device key's (``prng.DeviceKey``) are
+views of its key tape's seed table, read by the kernels from device memory.
 
 Every launch carries a stable kind name (``noisy_read``, ``managed_read``,
 ``managed_read_conv``, ``pulse_counts``, ``pulse_update``, ``bwd_update``,
-``bwd_update_conv``, ``flash_attention``) that names its ``torch.profiler``
+``bwd_update_conv``, ``flash_attention``; ``key_schedule`` for the step's
+key tree, ``kernels/key_schedule.py``) that names its ``torch.profiler``
 range; :func:`launch_counts` reads the kernel wrappers' launch counters per
-kind.
+kind.  A captured graph's replays add its launches to the same counters
+(:func:`add_launch_counts`), since no wrapper runs then.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from repro_torch.core.device import DeviceMaps, RPUConfig
 from repro_torch.kernels import bwd_update_mvm as _bwd
 from repro_torch.kernels import conv_mvm as _conv
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import key_schedule as _keys
 from repro_torch.kernels import managed_mvm as _managed
 from repro_torch.kernels import noisy_mvm as _noisy
 from repro_torch.kernels import pulse_update as _pulse
@@ -40,6 +44,7 @@ _COUNTERS = {
     "bwd_update": (_bwd, "launches"),
     "bwd_update_conv": (_bwd, "conv_launches"),
     "flash_attention": (_flash, "launches"),
+    "key_schedule": (_keys, "launches"),
 }
 
 
@@ -52,6 +57,15 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in _COUNTERS.values():
         setattr(mod, attr, 0)
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add launches per kind made where no wrapper runs: a CUDA graph's
+    replay launches the kernels its capture recorded (negative counts take
+    back the wrappers' counts at a capture, which launches nothing)."""
+    for kind, n in counts.items():
+        mod, attr = _COUNTERS[kind]
+        setattr(mod, attr, getattr(mod, attr) + n)
 
 
 def _n_seg(w: Tensor, cfg: RPUConfig, transpose: bool) -> int:

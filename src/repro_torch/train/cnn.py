@@ -1,6 +1,10 @@
 """Training driver of the paper's CNN experiments: SGD at a fixed eta,
-epoch-wise test error, analog or FP mode, one Python step per minibatch
-(the JAX package's ``engine="python"``).
+epoch-wise test error, analog or FP mode.  Two engines, the JAX package's
+names: ``engine="scan"`` (default), the epoch engine of
+:mod:`repro_torch.train.engine` (one CUDA graph replay per step, its keys
+derived on the card), and ``engine="python"``, one Python step per
+minibatch with its keys derived on the host, kept as the oracle: both give
+the same parameters.
 
 Key schedule (the JAX package's): ``k_init, k_data, k_train, k_eval =
 split(key(seed), 4)``; step ``s`` of epoch ``e`` draws its noise from
@@ -15,6 +19,7 @@ Runs on ``cuda`` unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, List
 
@@ -22,30 +27,17 @@ import numpy as np
 import torch
 
 from repro_torch.models import lenet
-from repro_torch.optim import optimizers
+from repro_torch.train import engine as eng
+from repro_torch.train.engine import epoch_permutation
 from repro_torch.utils import prng
-
-
-def trainable(params) -> List[torch.Tensor]:
-    """The tiles' physical weights, made leaves that take a gradient."""
-    return [params[name].w.requires_grad_() for name in lenet.LAYERS]
 
 
 def make_train_step(cfg: lenet.LeNetConfig):
     """``step(params, images, labels, key)``: one SGD step in place
     (``analog_sgd`` in analog mode, ``sgd(lr)`` in digital mode); returns
-    the summed loss (a device scalar)."""
-    def step(params, images, labels, key):
-        ws = trainable(params)
-        loss = lenet.loss_fn(params, images, labels, key, cfg)
-        grads = torch.autograd.grad(loss, ws)
-        if cfg.mode == "analog":
-            optimizers.analog_sgd(ws, grads)
-        else:
-            optimizers.sgd(ws, grads, cfg.lr)
-        return loss.detach()
-
-    return step
+    the summed loss (a device scalar).  The engine's
+    ``make_cnn_step_fn``."""
+    return eng.make_cnn_step_fn(cfg)
 
 
 def make_eval(cfg: lenet.LeNetConfig, batch: int = 256):
@@ -71,28 +63,42 @@ def make_eval(cfg: lenet.LeNetConfig, batch: int = 256):
     return evaluate
 
 
-def epoch_permutation(k_data: prng.Key, epoch: int, n: int) -> torch.Tensor:
-    """The epoch's shuffle: ``torch.randperm`` under a generator seeded from
-    the key data of ``fold_in(k_data, epoch)``."""
-    k0, k1 = prng.fold_in(k_data, epoch)
-    g = torch.Generator().manual_seed((k0 << 32) | k1)
-    return torch.randperm(n, generator=g)
+def python_epoch(step, params, xs: torch.Tensor, ys: torch.Tensor,
+                 k_data: prng.Key, k_train: prng.Key, epoch: int,
+                 batch: int) -> None:
+    """One epoch of ``engine="python"``: a Python call of ``step`` per
+    minibatch, the step keys ``fold_in(k_train, epoch * spe + s)`` derived
+    on the host."""
+    spe = xs.shape[0] // batch
+    perm = epoch_permutation(k_data, epoch, xs.shape[0]).to(xs.device)
+    for s in range(spe):
+        idx = perm[s * batch:(s + 1) * batch]
+        step(params, xs[idx], ys[idx], prng.fold_in(k_train, epoch * spe + s))
 
 
 def train(cfg: lenet.LeNetConfig, *, epochs: int = 15, batch: int = 8,
           n_train: int = 8192, n_test: int = 2048, seed: int = 0,
           verbose: bool = True, return_params: bool = False,
-          device="cuda") -> Dict:
+          device="cuda", engine: str = "scan") -> Dict:
     """Train per the paper's protocol; returns ``{"test_error": [...],
     "final_error", "mean_last5", "std_last5", "wallclock_s",
-    "steps_per_sec", "device"}`` (and ``"params"`` on request)."""
+    "steps_per_sec", "engine", "device"}`` (and ``"params"`` on request).
+    ``engine``: ``"scan"`` (the epoch engine; raises ``ValueError`` under
+    iterative bound management) or ``"python"`` (the per-step loop)."""
+    if engine not in ("scan", "python"):
+        raise ValueError(f"unknown engine {engine!r}")
     from repro_torch.data import mnist
     (xtr, ytr), (xte, yte) = mnist.load_splits(n_train, n_test, seed=seed,
                                                verbose=verbose)
     k_init, k_data, k_train, k_eval = prng.split(prng.key(seed), 4)
     params = lenet.init(k_init, cfg, device=device)
-    step = make_train_step(cfg)
-    evaluate = make_eval(cfg)
+    if engine == "scan":
+        run_epoch = eng.make_cnn_epoch_fn(cfg, batch=batch)
+        evaluate = eng.make_cnn_eval_fn(cfg)
+    else:
+        step = make_train_step(cfg)
+        run_epoch = functools.partial(python_epoch, step, batch=batch)
+        evaluate = make_eval(cfg)
     xtr_d, ytr_d = torch.from_numpy(xtr).to(device), torch.from_numpy(
         ytr).to(device)
     xte_d, yte_d = torch.from_numpy(xte).to(device), torch.from_numpy(
@@ -102,11 +108,7 @@ def train(cfg: lenet.LeNetConfig, *, epochs: int = 15, batch: int = 8,
     spe = len(xtr) // batch
     t0 = time.perf_counter()
     for epoch in range(epochs):
-        perm = epoch_permutation(k_data, epoch, len(xtr)).to(device)
-        for s in range(spe):
-            idx = perm[s * batch:(s + 1) * batch]
-            step(params, xtr_d[idx], ytr_d[idx],
-                 prng.fold_in(k_train, epoch * spe + s))
+        run_epoch(params, xtr_d, ytr_d, k_data, k_train, epoch)
         err = evaluate(params, xte_d, yte_d, prng.fold_in(k_eval, epoch))
         history.append(err)
         if verbose:
@@ -121,6 +123,7 @@ def train(cfg: lenet.LeNetConfig, *, epochs: int = 15, batch: int = 8,
         "std_last5": float(np.std(history[-5:])) if history else None,
         "wallclock_s": wallclock,
         "steps_per_sec": epochs * spe / wallclock if wallclock > 0 else None,
+        "engine": engine,
         "device": str(torch.device(device)),
     }
     if return_params:

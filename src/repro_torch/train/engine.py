@@ -1,0 +1,305 @@
+"""The epoch engine of the LeNet trainer: one CUDA graph replay per step.
+
+Port of the CNN part of the JAX package's ``train/engine.py``
+(``fold_in_keys`` :53, ``make_cnn_step_fn`` :159, ``make_cnn_epoch_fn``
+:183, ``make_cnn_eval_fn`` :221).  There the whole epoch is one jitted XLA
+program: the shuffle gather runs on the device, and the step keys
+``fold_in(k_train, epoch * spe + s)`` are derived inside the scan.
+PyTorch's counterpart of a jitted scan is a CUDA graph, captured once and
+replayed once per step:
+
+* static buffers hold the split, the epoch's permutation and a device step
+  counter (step of the epoch, global step);
+* the captured step is the key-schedule launch (every key and seed of the
+  step from the global counter, ``kernels/key_schedule.py``), the
+  minibatch gather ``perm.view(spe, batch)[step]`` by ``index_select``,
+  the loss, ``torch.autograd.grad``, the optimizer's in-place update and
+  the counter's ``add_``;
+* the step's key tree is recorded on a :class:`~repro_torch.utils.prng.
+  KeyTape` by one warm-up step on copies of the tiles, on the capture's
+  side stream and with host synchronisations made errors; the capture
+  records it again and checks that it is the same.  The seeds reach the
+  kernels as views of the tape's seed table, never as launch-time ints.
+
+On the CPU the same program runs uncaptured: the key schedule's plain
+version fills the seed table before each step, and the kernels' plain
+versions read it.  Either way the epoch is bit-identical to
+``cnn.train(engine="python")``: the same batches and the same keys.
+
+Iterative bound management is refused: its retry loop reads the
+saturation flags back to the host (the ``.item()`` at
+``core/management.py:68``).  The data-parallel split and the sequence
+engines are not ported.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.analog.modules import AnalogState
+from repro_torch.core import management
+from repro_torch.kernels import gemm, ops
+from repro_torch.kernels.key_schedule import key_schedule
+from repro_torch.models import lenet
+from repro_torch.optim import optimizers
+from repro_torch.utils import prng
+
+_M32 = 0xFFFFFFFF
+Params = Dict[str, AnalogState]
+
+
+def fold_in_keys(key: prng.Key, indices: Sequence[int]) -> np.ndarray:
+    """Batched ``fold_in``: the key data ``(n, 2)`` uint32 of
+    ``fold_in(key, i)`` for each index, the step keys of the JAX package's
+    engines.  The key-schedule kernel derives a step's root key the same
+    way, from the device counter."""
+    idx = np.asarray(indices, dtype=np.int64).reshape(-1)
+    return np.array([prng.fold_in(key, int(i) & _M32) for i in idx],
+                    dtype=np.uint32).reshape(-1, 2)
+
+
+def trainable(params: Params) -> List[torch.Tensor]:
+    """The tiles' physical weights, made leaves that take a gradient."""
+    return [params[name].w.requires_grad_() for name in lenet.LAYERS]
+
+
+def epoch_permutation(k_data: prng.Key, epoch: int, n: int) -> torch.Tensor:
+    """The epoch's shuffle: ``torch.randperm`` under a generator seeded from
+    the key data of ``fold_in(k_data, epoch)``."""
+    k0, k1 = prng.fold_in(k_data, epoch)
+    g = torch.Generator().manual_seed((k0 << 32) | k1)
+    return torch.randperm(n, generator=g)
+
+
+def _check_capturable(cfg: lenet.LeNetConfig) -> None:
+    for layer in lenet.LAYERS:
+        if (cfg.layer_mode(layer) == "analog"
+                and management.bm_is_iterative(cfg.cfg(layer))):
+            raise ValueError(
+                f"{layer}: iterative bound management decides each retry on "
+                "the host (the saturation check's .item() at "
+                "core/management.py:68), so its steps cannot run as a "
+                "captured graph; use engine='python' or "
+                "bm_mode='two_phase'")
+
+
+def make_cnn_step_fn(cfg: lenet.LeNetConfig,
+                     opt: Optional[Callable] = None) -> Callable:
+    """``step(params, x, y, key)``: one SGD step in place, ``opt(ws,
+    grads)`` (default ``analog_sgd`` in analog mode, ``sgd(lr)`` in
+    digital mode); returns the summed loss (a device scalar).  ``key`` is
+    a host key or a device key (``prng.DeviceKey``)."""
+    if opt is None:
+        opt = (optimizers.analog_sgd if cfg.mode == "analog"
+               else functools.partial(optimizers.sgd, lr=cfg.lr))
+
+    def step(params, x, y, key):
+        ws = trainable(params)
+        loss = lenet.loss_fn(params, x, y, key, cfg)
+        opt(ws, torch.autograd.grad(loss, ws))
+        return loss.detach()
+
+    return step
+
+
+class _Graphed:
+    """A step function over static buffers, with its key tree on a tape
+    whose root is ``fold_in(base, ctr[1])``: captured into one CUDA graph
+    on a card, run as it is on the CPU."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.tape = prng.KeyTape(self.device)
+        self.base = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self.ctr = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self.graph = self.stream = self.out = None
+        self.captured: Dict[str, int] = {}  # launches per replay, by kind
+
+    def body(self, state, root: prng.DeviceKey) -> torch.Tensor:
+        """One step on ``state`` under the tape's root key; returns its
+        output tensor."""
+        raise NotImplementedError
+
+    def _recorded(self, state):
+        root = self.tape.begin()
+        out = self.body(state, root)
+        self.tape.end()
+        return out
+
+    def build(self, warm_state, state) -> None:
+        """Record the tape by one step on ``warm_state``; on a card, capture
+        the key schedule and one step on ``state`` into the graph."""
+        if self.device.type != "cuda":
+            self._recorded(warm_state)
+            self.state = state
+            return
+        s = self.stream = torch.cuda.Stream(self.device)
+        s.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(s):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self._recorded(warm_state)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            self.tape.program()           # the tape's upload, before capture
+        torch.cuda.current_stream(self.device).wait_stream(s)
+        # keep_graph: the captured nodes stay readable (graph.debug_dump
+        # writes what a replay launches); it keeps the node list on the
+        # host, and a replay runs the instantiated graph either way
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = ops.launch_counts()
+        with torch.cuda.graph(self.graph, stream=s):
+            key_schedule(self.tape, self.base, self.ctr[1])
+            self.out = self._recorded(state)
+        self.graph.instantiate()
+        # the wrappers counted at the capture, which launches nothing; each
+        # replay launches what they counted
+        self.captured = {k: n - before[k]
+                         for k, n in ops.launch_counts().items()
+                         if n != before[k]}
+        ops.add_launch_counts({k: -n for k, n in self.captured.items()})
+        # the scratch the captured reads point at (kernels/gemm.py), held
+        # so that it outlives a regrowth for another user of the stream
+        self.scratch = gemm.scratch(self.device, s.cuda_stream, 0, 0)
+
+    def run(self) -> torch.Tensor:
+        """One step: a graph replay on a card, else the plain key schedule
+        and the step."""
+        if self.graph is not None:
+            self.graph.replay()
+            ops.add_launch_counts(self.captured)
+            return self.out
+        key_schedule(self.tape, self.base, self.ctr[1])
+        return self._recorded(self.state)
+
+
+class _EpochStep(_Graphed):
+    def __init__(self, step, xs, ys, batch):
+        super().__init__(xs.device)
+        self.step, self.batch = step, batch
+        self.spe = xs.shape[0] // batch
+        self.xs, self.ys = torch.empty_like(xs), torch.empty_like(ys)
+        self.perm = torch.zeros(self.spe * batch, dtype=torch.int64,
+                                device=self.device)
+
+    def body(self, params, root):
+        rows = self.perm.view(self.spe, self.batch).index_select(
+            0, self.ctr[:1]).view(-1)
+        loss = self.step(params, self.xs.index_select(0, rows),
+                         self.ys.index_select(0, rows), root)
+        self.ctr.add_(1)
+        return loss
+
+
+def _signature(params: Params, xs: torch.Tensor, ys: torch.Tensor):
+    """What a captured step bakes in: the tiles' storage and the split's
+    shape, type and device."""
+    return (tuple((params[n].w.data_ptr(), id(params[n].maps))
+                  for n in lenet.LAYERS), tuple(xs.shape), xs.dtype,
+            tuple(ys.shape), ys.dtype, xs.device)
+
+
+def _copies(params: Params) -> Params:
+    return {n: AnalogState(p.w.detach().clone(), p.maps, p.seed, p.meta)
+            for n, p in params.items()}
+
+
+def make_cnn_epoch_fn(cfg: lenet.LeNetConfig, opt: Optional[Callable] = None,
+                      *, batch: int) -> Callable:
+    """``run_epoch(params, xs, ys, k_data, k_train, epoch)``: one epoch of
+    ``len(xs) // batch`` steps over the device-resident split, shuffled by
+    :func:`epoch_permutation`, step ``s`` under
+    ``fold_in(k_train, epoch * spe + s)``; the tiles are updated in place
+    (and returned).  The first call captures the step (again whenever the
+    tiles or the split's shape change); every step is then one
+    graph replay.  ``run_epoch.program`` is the captured step (its graph,
+    whose nodes ``program.graph.debug_dump`` writes as a DOT file, the
+    launches per replay by kind, tape, counter and buffers).  A replay adds
+    its launches to ``ops.launch_counts``."""
+    _check_capturable(cfg)
+    step = make_cnn_step_fn(cfg, opt)
+
+    def run_epoch(params: Params, xs: torch.Tensor, ys: torch.Tensor,
+                  k_data: prng.Key, k_train: prng.Key, epoch: int) -> Params:
+        sig = _signature(params, xs, ys)
+        prog = run_epoch.program
+        new = prog is None or run_epoch.sig != sig
+        if new:
+            prog = _EpochStep(step, xs, ys, batch)
+        prog.xs.copy_(xs)
+        prog.ys.copy_(ys)
+        if new:
+            prog.build(_copies(params), params)
+            run_epoch.program, run_epoch.sig = prog, sig
+        perm = epoch_permutation(k_data, epoch, xs.shape[0])
+        prog.perm.copy_(perm[:prog.perm.numel()])
+        prog.base.copy_(torch.tensor(k_train, dtype=torch.int64))
+        prog.ctr.copy_(torch.tensor([0, epoch * prog.spe]))
+        for _ in range(prog.spe):
+            prog.run()
+        return params
+
+    run_epoch.program = run_epoch.sig = None
+    return run_epoch
+
+
+class _EvalStep(_Graphed):
+    def __init__(self, cfg, xs, ys, batch):
+        super().__init__(xs.device)
+        self.cfg, self.batch = cfg, batch
+        n = xs.shape[0]
+        self.nb = -(-n // batch)
+        pad = self.nb * batch - n
+        self.xs = torch.cat([xs, xs.new_zeros((pad,) + tuple(xs.shape[1:]))])
+        self.ys = torch.cat([ys, ys.new_zeros((pad,))])
+        self.wt = torch.cat([torch.ones(n, device=self.device),
+                             torch.zeros(pad, device=self.device)])
+        self.advance = torch.tensor([1, batch], device=self.device)
+        self.correct = torch.zeros((), device=self.device)
+
+    def body(self, params, root):
+        i = self.ctr[:1]
+        pick = lambda t: t.view(self.nb, self.batch,  # noqa: E731
+                                *t.shape[1:]).index_select(0, i)[0]
+        with torch.no_grad():
+            logits = lenet.apply(params, pick(self.xs), root, self.cfg)
+            hit = (torch.argmax(logits, dim=-1) == pick(self.ys)).float()
+            self.correct.add_(torch.sum(hit * pick(self.wt)))
+        self.ctr.add_(self.advance)
+        return self.correct
+
+
+def make_cnn_eval_fn(cfg: lenet.LeNetConfig, *, batch: int = 256
+                     ) -> Callable:
+    """``evaluate(params, xs, ys, key) -> error``: the split padded to a
+    batch multiple with weight-0 images, batch ``i`` read under
+    ``fold_in(key, i * batch)`` (the reference's schedule, and
+    ``cnn.make_eval``'s), one graph replay per batch; the error is
+    ``1 - correct / n`` (one read-back per call)."""
+    _check_capturable(cfg)
+
+    def evaluate(params: Params, xs: torch.Tensor, ys: torch.Tensor,
+                 key: prng.Key) -> float:
+        sig = _signature(params, xs, ys)
+        prog = evaluate.program
+        if prog is None or evaluate.sig != sig:
+            prog = _EvalStep(cfg, xs, ys, batch)
+            prog.build(params, params)
+            evaluate.program, evaluate.sig = prog, sig
+        else:
+            prog.xs[:xs.shape[0]].copy_(xs)
+            prog.ys[:ys.shape[0]].copy_(ys)
+        prog.base.copy_(torch.tensor(key, dtype=torch.int64))
+        prog.ctr.zero_()
+        prog.correct.zero_()
+        for _ in range(prog.nb):
+            prog.run()
+        return 1.0 - float(prog.correct) / xs.shape[0]
+
+    evaluate.program = evaluate.sig = None
+    return evaluate

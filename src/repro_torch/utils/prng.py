@@ -1,11 +1,22 @@
-"""Host-side threefry2x32 PRNG keys, bit-compatible with ``jax.random``.
+"""Threefry2x32 PRNG keys, bit-compatible with ``jax.random``.
 
 The analog read noise is drawn on the device from a counter hash seeded by
 one u32 word per read (``fastrng.key_to_seed``); that word is derived from a
 tree of ``split`` / ``fold_in`` calls over threefry keys.  This module is that
-key schedule, run on the host in plain Python integers, so a read costs no
-device round trip and the same key yields the same seed as in the JAX
-package.
+key schedule, on two routes:
+
+* a :data:`Key` is two Python ints: the tree runs on the host, and a seed
+  reaches a kernel as a launch argument (the per-step loop, serving, the
+  tests);
+* a :class:`DeviceKey` is a slot of a :class:`KeyTape`: ``split`` and
+  ``fold_in`` record the derivation, ``fastrng.key_to_seed`` returns a 0-d
+  view of the tape's seed table, and the whole tree of a step is evaluated
+  at once from a step counter in device memory, by the key-schedule kernel
+  on the card (``kernels/key_schedule.py``) or its plain version on the
+  CPU.  That is what lets one CUDA graph replay every step of an epoch
+  (``train/engine.py``).
+
+The same key yields the same seed as in the JAX package on both routes.
 
 Mode: ``jax_threefry_partitionable=True`` (the default of jax 0.9), impl
 ``threefry2x32``:
@@ -28,7 +39,8 @@ is numpy's, so a draw agrees with ``jax.random.normal`` to 2 ulp.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +48,9 @@ import torch
 Key = Tuple[int, int]
 
 _M32 = 0xFFFFFFFF
+#: Key slots of a :class:`KeyTape`: the key-schedule kernel holds every key
+#: of a step in its 48 KB of shared memory, 8 bytes a key.
+TAPE_SLOTS = 48 * 1024 // 8
 # (rotation, 32 - rotation) for the two alternating groups of four rounds
 _ROT = tuple(tuple((r, 32 - r) for r in g)
              for g in ((13, 15, 26, 6), (17, 29, 16, 24)))
@@ -66,13 +81,125 @@ def key(seed: int) -> Key:
     return 0, seed & _M32
 
 
-def split(k: Key, n: int = 2) -> List[Key]:
+class KeyTape:
+    """The key tree of one step, recorded as derivations from a root.
+
+    Slot 0 is the step's root key, ``fold_in(base, counter)`` with ``base``
+    a key and ``counter`` an int64 scalar, both in device memory.  Op ``i``
+    derives slot ``i + 1`` as ``threefry2x32(key[parent], (0, data))``:
+    ``split(k, n)[j]`` and ``fold_in(k, j)`` are both that block.  A seed
+    request appends an entry to the seed list and returns a 0-d view of
+    :attr:`seeds`, which the evaluation fills.  A derivation or a seed asked
+    for twice in one step is recorded once.
+
+    A step function records its tree between :meth:`begin` and :meth:`end`;
+    the first recording is kept, and every later one must equal it, so no
+    key of the step depends on its data.  :meth:`program` is the recorded
+    tape as the key-schedule kernel reads it.
+    """
+
+    def __init__(self, device="cpu"):
+        dev = torch.device(device)
+        self.keys = torch.zeros(TAPE_SLOTS, 2, dtype=torch.int64, device=dev)
+        # one seed per slot at most: a slot's seed is recorded once
+        self.seeds = torch.zeros(TAPE_SLOTS, dtype=torch.int64, device=dev)
+        self.parent: List[int] = []
+        self.data: List[int] = []
+        self.seed_slots: List[int] = []
+        self._slots: Dict[Tuple[int, int], int] = {}
+        self._seed_index: Dict[int, int] = {}
+        self._frozen: Optional[Tuple[tuple, tuple, tuple]] = None
+        self._program = None
+
+    def begin(self) -> "DeviceKey":
+        """Start recording a step; returns its root key (slot 0)."""
+        self.parent, self.data, self.seed_slots = [], [], []
+        self._slots, self._seed_index = {}, {}
+        return DeviceKey(self, 0)
+
+    def end(self) -> None:
+        """Finish a step's recording: keep the first, check every later one
+        against it."""
+        rec = (tuple(self.parent), tuple(self.data), tuple(self.seed_slots))
+        if self._frozen is None:
+            self._frozen = rec
+        elif rec != self._frozen:
+            raise RuntimeError(
+                f"the step's key tree changed: {len(rec[0])} derivations and "
+                f"{len(rec[2])} seeds against {len(self._frozen[0])} and "
+                f"{len(self._frozen[2])} when it was first recorded (a key "
+                "that depends on the step's data cannot be scheduled ahead)")
+
+    def derive(self, slot: int, data: int) -> int:
+        """The slot of ``threefry2x32(key[slot], (0, data))``."""
+        op = (slot, int(data) & _M32)
+        new = self._slots.get(op)
+        if new is None:
+            if len(self.parent) + 1 >= TAPE_SLOTS:
+                raise RuntimeError(f"key tape full ({TAPE_SLOTS} slots)")
+            self.parent.append(op[0])
+            self.data.append(op[1])
+            new = self._slots[op] = len(self.parent)
+        return new
+
+    def seed(self, slot: int) -> torch.Tensor:
+        """The seed word of ``slot``: a 0-d int64 view of the seed table."""
+        j = self._seed_index.get(slot)
+        if j is None:
+            self.seed_slots.append(slot)
+            j = self._seed_index[slot] = len(self.seed_slots) - 1
+        return self.seeds[j]
+
+    @property
+    def recorded(self) -> Tuple[tuple, tuple, tuple]:
+        """The first recording: ``(parent, data, seed_slots)``."""
+        if self._frozen is None:
+            raise RuntimeError("no step has been recorded on this tape")
+        return self._frozen
+
+    def program(self):
+        """The recorded tape on the tables' device, made once: ``(parent,
+        data, level, seed_slot)`` int32 tensors (data as u32 bits) and the
+        number of levels."""
+        if self._program is None:
+            parent, data, slots = self.recorded
+            level = []
+            for p in parent:
+                level.append(level[p - 1] + 1 if p else 1)
+            dev = self.seeds.device
+            as_i32 = lambda v, dt=np.int32: torch.from_numpy(  # noqa: E731
+                np.asarray(v, dtype=dt).view(np.int32).reshape(-1)).to(dev)
+            self._program = (as_i32(parent), as_i32(data, np.uint32),
+                             as_i32(level), as_i32(slots),
+                             max(level, default=0))
+        return self._program
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DeviceKey:
+    """A key of a :class:`KeyTape`: ``split``/``fold_in`` record on the tape
+    and ``fastrng.key_to_seed`` returns a view of its seed table."""
+    tape: KeyTape
+    slot: int
+
+    def derive(self, data: int) -> "DeviceKey":
+        return DeviceKey(self.tape, self.tape.derive(self.slot, data))
+
+
+AnyKey = Union[Key, DeviceKey]
+
+
+def split(k: AnyKey, n: int = 2) -> List[AnyKey]:
     """``jax.random.split(k, n)`` as a list of ``n`` keys."""
+    if isinstance(k, DeviceKey):
+        return [k.derive(i) for i in range(n)]
     return [threefry2x32(k, 0, i) for i in range(n)]
 
 
-def fold_in(k: Key, data: int) -> Key:
+def fold_in(k: AnyKey, data: int) -> AnyKey:
     """``jax.random.fold_in(k, data)`` (data taken modulo 2**32)."""
+    if isinstance(k, DeviceKey):
+        return k.derive(data)
     return threefry2x32(k, 0, int(data) & _M32)
 
 

@@ -234,7 +234,7 @@ def test_launch_counters_untouched_on_cpu():
     assert tops.launch_counts() == {
         "noisy_read": 0, "managed_read": 0, "managed_read_conv": 0,
         "pulse_counts": 0, "pulse_update": 0, "bwd_update": 0,
-        "bwd_update_conv": 0, "flash_attention": 0}
+        "bwd_update_conv": 0, "flash_attention": 0, "key_schedule": 0}
 
 
 # ---------------------------------------------------------------------------
