@@ -32,7 +32,10 @@ Phases, each of which makes the script exit non-zero when it fails:
       read and on both; each fused entry also called twice back to back
       with different inputs and no synchronise between, so the second call
       finds the scratch as the first left it): counts bitwise, reads within
-      1e-5 of the largest sum |x||w| with equal saturation flags;
+      1e-5 of the largest sum |x||w| with equal saturation flags; the raw
+      read with its seed in device memory and with a true predicate
+      bitwise its by-value read, as is a by-value read after one whose
+      predicate is false;
   (g) train the full-width LeNet through ``repro_torch.train.cnn`` under
       the FUSED, SEPARATE and PAPER policies (20 steps each) and ITERATIVE
       (5 steps): launches per kind per step, no plain-version call on the
@@ -54,7 +57,18 @@ Phases, each of which makes the script exit non-zero when it fails:
       kernels, then 20 replays' and 20 key schedules); a second epoch of each
       engine timed (steps/s, images/s; tiles still equal), and one
       replayed step profiled beside one loop step (wall, device busy,
-      idle share);
+      idle share).  ITERATIVE (the paper's iterative BM, at alpha 1 so
+      that the first steps' reads saturate) the same way: its captured
+      step holds every read's 11 predicated raw reads (88), the 4 pulse
+      counts and one key schedule; and a counted epoch of each engine
+      (``management.count_retries``) shows retries ran, as many in the
+      graphed steps as in the loop's;
+  (p1) the paper's figure pair 1 through ``repro_torch.benchmarks.
+      cnn_suite`` at its band protocol (6 epochs of 2048 images), seed 0:
+      fig3a_baseline (no management) and fig3b_nm_bm (NM and the paper's
+      iterative BM, through the epoch engine); fig3b_nm_bm inside its JAX
+      seed band and the pair in JAX's order
+      (``repro_torch/benchmarks/bands.py``);
   (h) train 2 epochs of 1024 synthetic images under nm_bm with two-phase
       BM and the fused update through ``engine="scan"``: final test error
       below 0.4;
@@ -138,6 +152,9 @@ SEPARATE = "managed:use_pallas=true:bm_mode=two_phase"
 PAPER = ("K2=k2_multi_device:use_pallas=true:bm_mode=two_phase"
          ":fuse_bwd_update=true,*=" + FUSED)
 ITERATIVE = "nm_bm:use_pallas=true"
+# the first steps of a LeNet read nothing past alpha 12: at alpha 1 they
+# saturate, and the engine's check sees retries run
+ITERATIVE_A1 = ITERATIVE + ":out_bound=1"
 LEARN = "nm_bm:use_pallas=true:bm_mode=two_phase:fuse_bwd_update=true"
 LENET_BATCH, LENET_STEPS, ITERATIVE_STEPS = 8, 20, 5
 PER_STEP = {
@@ -147,6 +164,9 @@ PER_STEP = {
                  "pulse_counts": 4},
     "paper": {"managed_read": 2, "managed_read_conv": 2, "bwd_update": 2,
               "bwd_update_conv": 2},
+    # 8 reads (K1-W4 forward and transpose), each a first read and
+    # bm_max_iters = 10 predicated retries; 4 pulse counts
+    "iterative": {"noisy_read": 88, "pulse_counts": 4},
 }
 
 # qwen3_14b serving with the flash-attention prefill (slice 3)
@@ -179,7 +199,7 @@ KERNELS = {
     "noisy_mvm": dict(route="cuda",
                       source="src/repro_torch/csrc/noisy_mvm.cu",
                       replaces="src/repro/kernels/noisy_mvm.py:127",
-                      kind="noisy_read", run="serve_iterative",
+                      kind="noisy_read", run="engine_iterative",
                       shape="wg/wi 11008x4096"),
     "managed_mvm": dict(route="cuda",
                         source="src/repro_torch/csrc/managed_mvm.cu",
@@ -974,6 +994,29 @@ def _read_check(results, kernel, case, y, yp, s, sp, mag, extra=""):
     return good
 
 
+def _seed_and_predicate_check(results, case, w, x, seed, kw, y, s):
+    """#1 with its seed in device memory, with a true predicate, and again
+    by value after a read whose predicate is false (which must neither
+    write nor leave the scratch dirty): each bitwise the by-value read
+    ``(y, s)``."""
+    import torch
+    from repro_torch.kernels import noisy_mvm as kn
+    seed_t = torch.tensor(seed, dtype=torch.int64, device=DEV)
+    go = {v: torch.tensor(v, device=DEV) for v in (True, False)}
+    reads = [kn.noisy_mvm(w, x, seed_t, **kw),
+             kn.noisy_mvm(w, x, seed_t, go=go[True], **kw)]
+    kn.noisy_mvm(w, x, seed_t, go=go[False], **kw)
+    reads.append(kn.noisy_mvm(w, x, seed, **kw))
+    torch.cuda.synchronize()
+    good = all(torch.equal(a, y) and torch.equal(b, s) for a, b in reads)
+    print(f"[check] noisy_mvm       {case:<34} device seed, go=1, and by "
+          f"value after a go=0 read: bitwise {'ok' if good else 'FAIL'}")
+    results.setdefault("checks", []).append(dict(
+        kernel="noisy_mvm", case=f"{case} device seed and predicate",
+        max_abs_err=0.0 if good else float("inf"), tol=0.0, ok=good))
+    return good
+
+
 def _count_check(results, kernel, case, up, dn, upp, dnp):
     import torch
     torch.cuda.synchronize()
@@ -1057,6 +1100,8 @@ def training_kernels_vs_plain(results):
         y, s = kn.noisy_mvm(w, x, 0x5EED + seed, **kw)
         yp, sp = kn.noisy_mvm_plain(w, x, 0x5EED + seed, **kw)
         ok &= _read_check(results, "noisy_mvm", case, y, yp, s, sp, mag)
+        ok &= _seed_and_predicate_check(results, case, w, x, 0x5EED + seed,
+                                        kw, y, s)
         for nm in (False, True):
             nm_s = (x.abs().amax(1, keepdim=True) if nm
                     else torch.ones(x.shape[0], 1, device=DEV))
@@ -1303,24 +1348,28 @@ def lenet_training(results):
 # (g2) the epoch engine: one CUDA graph replay per step
 # ---------------------------------------------------------------------------
 
-ENGINE_POLICIES = (("fused", FUSED), ("separate", SEPARATE), ("paper", PAPER))
+ENGINE_POLICIES = (("fused", FUSED), ("separate", SEPARATE), ("paper", PAPER),
+                   ("iterative", ITERATIVE_A1))
 # analog kernel nodes of one captured step (a tiled managed read is two
-# kernels: tile and finish)
-GRAPH_ANALOG = {"fused": 8, "paper": 8, "separate": 16}
+# kernels: tile and finish; ITERATIVE's 88 raw reads and 4 pulse counts)
+GRAPH_ANALOG = {"fused": 8, "paper": 8, "separate": 16, "iterative": 92}
+# the steps whose pulse counts zero their output by memset
+MEMSET_STEPS = ("separate", "iterative")
 
 
 def _graph_census(graph, path):
     """Nodes of a captured graph from its DOT dump:
-    ``{"analog": n, "key_schedule": n, "kernel": n, "memset": n, "memcpy":
-    n, "other": n}``.  Analog kernels are those of namespace ``analog``
-    (mangled ``6analog``)."""
+    ``{"analog": n, "raw_read": n, "pulse_counts": n, "key_schedule": n,
+    "kernel": n, "memset": n, "memcpy": n, "other": n}``.  Analog kernels
+    are those of namespace ``analog`` (mangled ``6analog``); raw reads
+    (#1) and pulse counts (#4) are among them."""
     import re
     path.parent.mkdir(parents=True, exist_ok=True)
     path.unlink(missing_ok=True)
     graph.debug_dump(str(path))
     text = Path(path).read_text()
-    census = dict(analog=0, key_schedule=0, kernel=0, memset=0, memcpy=0,
-                  other=0)
+    census = dict(analog=0, raw_read=0, pulse_counts=0, key_schedule=0,
+                  kernel=0, memset=0, memcpy=0, other=0)
     for label in re.findall(r'label="\{(.*?)"\]', text, flags=re.S):
         head = label.upper()
         if "MEMSET" in head:
@@ -1330,6 +1379,9 @@ def _graph_census(graph, path):
         elif "KERNEL" in head:
             census["kernel"] += 1
             census["key_schedule"] += "key_schedule_kernel" in label
+            census["raw_read"] += ("raw_gemv_kernel" in label
+                                   or "raw_tile_kernel" in label)
+            census["pulse_counts"] += "pulse_counts_kernel" in label
             census["analog"] += ("6analog" in label or "analog::" in label)
         else:
             census["other"] += 1
@@ -1422,9 +1474,12 @@ def engine_parity(name, policy, results):
                            ROOT / "build" / "graphs" / f"{name}.dot")
     print(f"[{label}] captured step's nodes: {census}")
     check(census["key_schedule"] == 1
-          and census["analog"] == GRAPH_ANALOG[name],
+          and census["analog"] == GRAPH_ANALOG[name]
+          and census["raw_read"] == PER_STEP[name].get("noisy_read", 0)
+          and census["pulse_counts"] == PER_STEP[name].get(
+              "pulse_counts", 0),
           f"{name}: the captured step holds {census}")
-    if name != "separate":  # SEPARATE's pulse counts zero by memset
+    if name not in MEMSET_STEPS:
         check(census["memset"] == census["memcpy"] == 0,
               f"{name}: the captured step holds a memset or copy: {census}")
 
@@ -1474,6 +1529,54 @@ def lenet_engines(results):
         tape, prog = engine_parity(name, policy, results)
         if name == "fused":
             key_schedule_time(results, tape, prog)
+    engine_retries(ITERATIVE_A1, results)
+
+
+def engine_retries(policy, results):
+    """Iterative BM's retries in graphed steps: from the same tiles, two
+    epochs of each engine with the retry counter on
+    (``management.count_retries``); the second epoch's counts (the graph's
+    20 replays; its warm-up step is in the first) equal, and not zero, and
+    every tile bitwise equal."""
+    import torch
+    from repro_torch.analog import presets
+    from repro_torch.core import management
+    from repro_torch.models import lenet
+    from repro_torch.train import cnn, engine
+    from repro_torch.utils import prng
+
+    cfg = lenet.LeNetConfig.from_policy(presets.parse_policy(policy))
+    xs, ys = _lenet_images(LENET_STEPS * LENET_BATCH, seed=4)
+    k_data, k_train = prng.key(5), prng.key(6)
+    step = cnn.make_train_step(cfg)
+    p_loop = lenet.init(prng.key(1), cfg, device=DEV)
+    p_scan = lenet.init(prng.key(1), cfg, device=DEV)
+    run = engine.make_cnn_epoch_fn(cfg, batch=LENET_BATCH)
+    loop_n, scan_n = (management.count_retries(DEV) for _ in range(2))
+    counts = []
+    for epoch in (0, 1):
+        with loop_n:
+            cnn.python_epoch(step, p_loop, xs, ys, k_data, k_train, epoch,
+                             LENET_BATCH)
+        with scan_n:
+            run(p_scan, xs, ys, k_data, k_train, epoch)
+        torch.cuda.synchronize()
+        counts.append((int(loop_n.n), int(scan_n.n)))
+        loop_n.n.zero_()
+        scan_n.n.zero_()
+    equal = {k: torch.equal(p_loop[k].w, p_scan[k].w) for k in lenet.LAYERS}
+    (loop0, scan0), (loop1, scan1) = counts
+    print(f"[engine_retries] {policy}: BM retries, epoch 1 loop {loop0} / "
+          f"graph {scan0} (its warm-up step included); epoch 2 loop "
+          f"{loop1} / graph {scan1} ({LENET_STEPS} replays); tiles bitwise "
+          f"equal after 2 epochs: {equal}")
+    results["engine_retries"] = dict(policy=policy, counts=counts,
+                                     tiles_equal=equal)
+    check(all(equal.values()), "iterative: graphed steps differ from the "
+          "loop in the counted epochs")
+    check(loop1 == scan1 > 0,
+          f"iterative: {scan1} retries in the graph's epoch, {loop1} in the "
+          "loop's (they must be equal and not zero)")
 
 
 def key_schedule_time(results, tape, prog):
@@ -1500,6 +1603,41 @@ def key_schedule_time(results, tape, prog):
         kernel="key_schedule", case="LeNet FUSED step, 20 steps",
         max_abs_err=float(results["engine_fused"]["key_tape"]["max_abs_err"]),
         tol=0.0))
+
+
+# ---------------------------------------------------------------------------
+# (p1) the paper's figure pair 1 against the JAX package's seed band
+# ---------------------------------------------------------------------------
+
+def figure_pair(results):
+    """fig3a_baseline and fig3b_nm_bm at the band protocol, seed 0, through
+    the suite's command-line path (``cnn_suite.run_one``: the kernels, the
+    epoch engine): fig3b_nm_bm inside its JAX band, the pair in JAX's
+    order."""
+    from repro_torch.benchmarks import bands, cnn_suite
+    pair = cnn_suite.PAIRS[0]
+    port, runs = {}, {}
+    for name in pair:
+        r = cnn_suite.run_one(name, 0, "band",
+                              out=str(ROOT / "chiprun_out" / "figure_pair"),
+                              device=DEV)
+        port[name] = [r["mean_last5"]]
+        runs[name] = dict(test_error=r["test_error"],
+                          mean_last5=r["mean_last5"],
+                          steps_per_s=r["steps_per_sec"],
+                          seconds=r["wallclock_s"], kernels=r["kernels"])
+        print(f"[figure_pair] {name}: test error per epoch "
+              f"{[round(e, 4) for e in r['test_error']]}, mean_last5 "
+              f"{r['mean_last5']:.4f}, {r['steps_per_sec']:.1f} steps/s "
+              f"(training and evaluation, captures included), "
+              f"{r['wallclock_s']:.1f}s")
+    v = bands.decide(pair, port, bands.load())
+    print(f"[figure_pair] {bands.describe(v)}")
+    results["figure_pair"] = dict(runs=runs, verdict=v)
+    check(v["in_band"][1], f"{pair[1]} {v['port'][1]:.4f} outside its JAX "
+          f"band {v['band_b']}")
+    check(v["order_ok"], f"{pair}: the port's order {v['port']} is not "
+          f"JAX's {v['jax']}")
 
 
 # ---------------------------------------------------------------------------
@@ -2214,6 +2352,7 @@ PHASES = [
     ("f", "training kernels vs plain versions", training_kernels_vs_plain),
     ("g", "LeNet training on the card", lenet_training),
     ("g2", "the epoch engine: graphed steps vs the loop", lenet_engines),
+    ("p1", "figure pair 1 in its JAX seed band", figure_pair),
     ("h", "learning", lenet_learning),
     ("r2", "one training step, card vs CPU", step_reference),
     ("e", "kernel times", kernel_times_all),

@@ -163,14 +163,15 @@ class AnalogConv2d:
     @staticmethod
     def apply(state: AnalogState, x: Tensor, key: Optional[prng.Key] = None,
               *, lr: float = 1.0, mode: str = "analog",
-              cfg: Optional[RPUConfig] = None) -> Tensor:
+              cfg: Optional[RPUConfig] = None, padding=None) -> Tensor:
         spec = state.meta.conv
         cfg = state.meta.cfg if cfg is None else cfg
+        padding = spec.padding if padding is None else padding
         if mode != "digital" and key is None:
             raise ValueError(
                 "analog reads draw physical noise: pass a PRNG key (or "
                 "mode='digital' for key-free FP eval)")
         return core_conv.apply(state.w, x, key, cfg, lr, kernel=spec.kernel,
-                               stride=spec.stride, padding=spec.padding,
+                               stride=spec.stride, padding=padding,
                                dilation=spec.dilation, bias=state.meta.bias,
                                mode=mode, maps=state.maps, seed=state.seed)

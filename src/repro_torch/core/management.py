@@ -11,9 +11,13 @@ schedule is the JAX package's exactly: iterative BM splits once for the
 first read, then once per retry; two-phase BM splits the key into the keys
 of its two reads.
 
-Iterative BM's data-dependent loop is a Python loop here: each retry
-decision reads the saturation flags back to the host (one ``.item()``
-synchronisation per check).
+Iterative BM has two forms with the same numbers.  Under a host key
+(``prng.Key``: the per-step loop, serving) it is a Python loop whose every
+retry decision reads the saturation flags back to the host.  Under a key of
+a key tape (``prng.DeviceKey``: the epoch engine's captured step) it is
+:func:`with_bound_management_predicated`: all ``bm_max_iters`` retries are
+unrolled, and each runs on a device predicate, so no retry decision leaves
+the card and one CUDA graph holds the whole loop.
 
 Update management (UM) returns the pulse gains ``(C_x, C_d)`` as 0-d
 float32 tensors on the data's device, so the update cycle never reads a
@@ -31,7 +35,7 @@ from repro_torch.core.device import RPUConfig
 from repro_torch.utils import prng
 
 Tensor = torch.Tensor
-AnalogMVM = Callable[[Tensor, prng.Key], Tuple[Tensor, Tensor]]
+AnalogMVM = Callable[..., Tuple[Tensor, Tensor]]
 
 _EPS = 1e-12
 
@@ -71,6 +75,63 @@ def with_bound_management(analog_mvm: AnalogMVM, x: Tensor, key: prng.Key,
         y, sat = analog_mvm(x / scale[..., None], k_read)
         y = y * scale[..., None]
         n_iter += 1
+    if _retry_counter is not None:
+        _retry_counter.add_(n_iter)
+    return y, sat
+
+
+#: Device counter of the retries iterative BM ran (None: not counted).
+#: Only a check sets it (:class:`count_retries`); the predicated form then
+#: adds each retry's predicate, one more kernel per retry.
+_retry_counter: Optional[Tensor] = None
+
+
+class count_retries:
+    """``with count_retries(device) as n:`` adds the retries of every
+    iterative-BM read made (or captured) inside the block, in either form,
+    to the int64 device scalar ``n``.  A graph captured inside the block
+    goes on adding on each replay: ``n`` must outlive it."""
+
+    def __init__(self, device):
+        self.n = torch.zeros((), dtype=torch.int64, device=device)
+
+    def __enter__(self) -> Tensor:
+        global _retry_counter
+        self._prev, _retry_counter = _retry_counter, self.n
+        return self.n
+
+    def __exit__(self, *exc) -> None:
+        global _retry_counter
+        _retry_counter = self._prev
+
+
+def with_bound_management_predicated(analog_mvm: AnalogMVM, x: Tensor,
+                                     key: prng.AnyKey, max_iters: int, *,
+                                     init_scale: Optional[Tensor] = None
+                                     ) -> Tuple[Tensor, Tensor]:
+    """:func:`with_bound_management` with no host synchronisation: the
+    ``max_iters`` retries are unrolled, retry ``i`` runs on the device
+    predicate ``go_i = go_{i-1} and any(sat_{i-1})`` (a 0-d bool tensor),
+    which the raw read takes as ``analog_mvm(x, key, go=go)`` (it returns
+    at once when ``go`` is false), and ``torch.where(go, ...)`` keeps the last
+    read's ``(y * scale, sat)`` and scale.  Every retry's key is split as
+    the loop splits it, so the keys the reads use are the loop's, and the
+    result is the loop's bit for bit."""
+    scale = _vector_scale(x, init_scale)
+    key, k0 = prng.split(key)
+    y, sat = analog_mvm(x / scale[..., None], k0)
+    y = y * scale[..., None]
+    go = None
+    for _ in range(max_iters):
+        key, k_read = prng.split(key)
+        go = torch.any(sat) if go is None else go & torch.any(sat)
+        s = torch.where(sat, scale * 2.0, scale)
+        y_r, sat_r = analog_mvm(x / s[..., None], k_read, go=go)
+        y = torch.where(go, y_r * s[..., None], y)
+        sat = torch.where(go, sat_r, sat)
+        scale = torch.where(go, s, scale)
+        if _retry_counter is not None:
+            _retry_counter.add_(go.long())
     return y, sat
 
 
@@ -103,7 +164,8 @@ def with_management(analog_mvm: AnalogMVM, x: Tensor, key: prng.Key,
                     cfg: RPUConfig, *, backward: bool
                     ) -> Tuple[Tensor, Tensor]:
     """Compose NM and BM around one managed read per the config flags;
-    ``analog_mvm`` must be the raw physical read."""
+    ``analog_mvm`` must be the raw physical read (taking ``go=`` under a
+    key tape's key and iterative BM)."""
     use_nm = cfg.noise_management and (backward or cfg.nm_forward)
     s_nm = nm_scale(x) if use_nm else None
 
@@ -111,8 +173,9 @@ def with_management(analog_mvm: AnalogMVM, x: Tensor, key: prng.Key,
         if not bm_is_iterative(cfg):
             return with_bound_management_two_phase(
                 analog_mvm, x, key, init_scale=s_nm)
-        return with_bound_management(
-            analog_mvm, x, key, cfg.bm_max_iters, init_scale=s_nm)
+        bm = (with_bound_management_predicated
+              if isinstance(key, prng.DeviceKey) else with_bound_management)
+        return bm(analog_mvm, x, key, cfg.bm_max_iters, init_scale=s_nm)
 
     if use_nm:
         y, sat = analog_mvm(x / s_nm, key)

@@ -77,13 +77,18 @@ def tile_maps(w: Tensor, maps: Optional[DeviceMaps], seed: prng.Key,
 
 def analog_mvm(w: Tensor, x: Tensor, key: prng.Key, cfg: RPUConfig, *,
                transpose: bool = False, row_offset: Optional[int] = None,
-               total_rows: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+               total_rows: Optional[int] = None,
+               go: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """One physical array read ``y = clip(W x + sigma*xi, +-alpha)`` with
-    contraction splits; returns ``(y, sat)`` with a per-vector flag."""
+    contraction splits; returns ``(y, sat)`` with a per-vector flag.  A
+    read with ``go`` (a 0-d bool device tensor: a predicated BM retry)
+    leaves its outputs undefined where ``go`` is false; the kernel then
+    returns at once, the plain version reads all the same."""
     if cfg.use_pallas:
         from repro_torch.kernels import ops as kops
         return kops.noisy_mvm(w, x, key, cfg, transpose=transpose,
-                              row_offset=row_offset, total_rows=total_rows)
+                              row_offset=row_offset, total_rows=total_rows,
+                              go=go)
     return analog_mvm_reference(w, x, key, cfg, transpose=transpose,
                                 row_offset=row_offset, total_rows=total_rows)
 
@@ -127,7 +132,7 @@ def managed_mvm_reference(w: Tensor, x: Tensor, key: prng.Key,
                           ) -> Tuple[Tensor, Tensor]:
     """Plain managed read: NM scale (once) + BM over raw reference reads,
     on physical output channels (the #_d average is the caller's step)."""
-    def mvm(xx, kk):
+    def mvm(xx, kk, go=None):
         return analog_mvm_reference(w, xx, kk, cfg, transpose=transpose,
                                     row_offset=row_offset,
                                     total_rows=total_rows)
@@ -149,7 +154,8 @@ def tile_forward(w: Tensor, x: Tensor, key: prng.Key, cfg: RPUConfig, *,
 
     With ``cfg.use_pallas`` and a fixed-latency BM mode (off or two-phase)
     the whole managed read is the ``managed_mvm`` kernel; iterative BM runs
-    its retry loop over one ``noisy_mvm`` kernel launch per read.
+    its retries over one ``noisy_mvm`` kernel launch per read (on a device
+    predicate under a key tape's key, ``management``).
     """
     check_supported(cfg)
     if cfg.use_pallas and not management.bm_is_iterative(cfg):
@@ -159,9 +165,10 @@ def tile_forward(w: Tensor, x: Tensor, key: prng.Key, cfg: RPUConfig, *,
                                   total_rows=total_rows)
         return (y, sat) if return_sat else y
 
-    def mvm(xx, kk):
+    def mvm(xx, kk, go=None):
         return analog_mvm(w, xx, kk, cfg, transpose=False,
-                          row_offset=row_offset, total_rows=total_rows)
+                          row_offset=row_offset, total_rows=total_rows,
+                          go=go)
 
     y_phys, sat = management.with_management(mvm, x, key, cfg,
                                              backward=False)
@@ -206,9 +213,10 @@ def tile_backward(w: Tensor, delta: Tensor, key: prng.Key, cfg: RPUConfig,
                                   backward=True, row_offset=row_offset,
                                   total_rows=total_rows)
     else:
-        def mvm(dd, kk):
+        def mvm(dd, kk, go=None):
             return analog_mvm(w, dd, kk, cfg, transpose=True,
-                              row_offset=row_offset, total_rows=total_rows)
+                              row_offset=row_offset, total_rows=total_rows,
+                              go=go)
 
         z, sat = management.with_management(mvm, delta, key, cfg,
                                             backward=True)

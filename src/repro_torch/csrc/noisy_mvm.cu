@@ -8,9 +8,16 @@
 //
 // It runs on #2's product (managed_gemm.cuh) with read_value in place of
 // the managed value; every read is ONE ordinary launch (no fill, no grid
-// barrier).  The per-row flags are ORed into a scratch per device and
-// stream that every call leaves zeroed; the last block to finish writes
-// the (B,) flags as bytes (the wrapper views them as bool) and clears it.
+// barrier).  The seed is an analog::Seed (by value, or read from a key
+// schedule's seed table when the kernel runs), and `go`, when not null, is
+// a device byte: zero makes every block return at once, before it touches
+// the outputs or the scratch.  That is a predicated bound-management retry
+// (core/management.py): a captured step holds all of a read's retries and
+// the card decides which of them run.  Both are kernel arguments beside
+// ReadArgs, whose by-value layout the decode's time depends on.  The
+// per-row flags are ORed into a scratch per device and stream that every
+// call leaves zeroed; the last block to finish writes the (B,) flags as
+// bytes (the wrapper views them as bool) and clears it.
 //   Decode (forward, B <= 8): gemv_walk streams W with float4 loads (x
 //     through L1), as many 8-warp blocks as fit on the card walking the
 //     column groups grid-stride; a warp owns whole columns over every
@@ -87,10 +94,12 @@ __device__ __forceinline__ void finish_flags(int* ticket, int* sat, int B,
 
 template <int NCW, bool VEC>
 __global__ void __launch_bounds__(GW * 32)
-    raw_gemv_kernel(ReadArgs a, uint32_t seed, float* __restrict__ y,
-                    int* sat, int* ticket, uint8_t* __restrict__ flags) {
+    raw_gemv_kernel(ReadArgs a, Seed seed, const uint8_t* __restrict__ go,
+                    float* __restrict__ y, int* sat, int* ticket,
+                    uint8_t* __restrict__ flags) {
+  if (go != nullptr && *go == 0) return;
   const int lane = threadIdx.x & 31;
-  RawGemvRead rd{a, mix32(seed), y};
+  RawGemvRead rd{a, seed.mixed(), y};
   gemv_walk<NCW, VEC>(a, rd);
   const uint32_t r = ballot_rows(rd.r);
   if (lane < a.B && ((r >> lane) & 1)) atomicOr(&sat[lane], 1);
@@ -104,10 +113,11 @@ __global__ void __launch_bounds__(GW * 32)
 // tickets: one per tile.
 template <int BM, int BN, bool VEC, bool TRANS, int TM>
 __global__ void __launch_bounds__((BM / TM) * (BN / TM), 2)
-    raw_tile_kernel(ReadArgs a, uint32_t seed, int split,
-                    float* __restrict__ part, float* __restrict__ y,
-                    int* sat, int* tickets, int* ticket,
-                    uint8_t* __restrict__ flags) {
+    raw_tile_kernel(ReadArgs a, Seed seed, const uint8_t* __restrict__ go,
+                    int split, float* __restrict__ part,
+                    float* __restrict__ y, int* sat, int* tickets,
+                    int* ticket, uint8_t* __restrict__ flags) {
+  if (go != nullptr && *go == 0) return;
   using T = Tile<BM, BN, VEC, TRANS, DenseX, TM>;
   extern __shared__ __align__(16) float smem[];
   const int m0 = blockIdx.z * BM, n0 = blockIdx.y * BN;
@@ -119,7 +129,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TM), 2)
   const int cs = min(ke, ks + sp * len), ce = min(ke, cs + len);
   float acc[TM][TM];
   T::segment(smem, a, m0, n0, cs, ce, acc);
-  const uint32_t seed_m = mix32(seed);
+  const uint32_t seed_m = seed.mixed();
   const size_t plane = (size_t)a.B * a.out_dim;
   uint32_t f = 0;  // bit i: owned row i saturated
   if (gridDim.x == 1) {
@@ -217,11 +227,12 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TM), 2)
 namespace {
 
 using analog::ReadArgs;
+using analog::Seed;
 namespace g = analog::gemm;
 
 template <int BM, int BN, bool VEC, bool TRANS, int TM>
-int launch_tile(const ReadArgs& a, uint32_t seed, int split, float* part,
-                float* y, int* sat, int* tickets, int* ticket,
+int launch_tile(const ReadArgs& a, Seed seed, const uint8_t* go, int split,
+                float* part, float* y, int* sat, int* tickets, int* ticket,
                 uint8_t* flags, cudaStream_t s) {
   using T = g::Tile<BM, BN, VEC, TRANS, g::DenseX, TM>;
   auto kern = g::raw_tile_kernel<BM, BN, VEC, TRANS, TM>;
@@ -230,27 +241,27 @@ int launch_tile(const ReadArgs& a, uint32_t seed, int split, float* part,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(a.n_seg * split, (a.out_dim + BN - 1) / BN,
                   (a.B + BM - 1) / BM);
-  kern<<<grid, T::THREADS, T::SMEM, s>>>(a, seed, split, part, y, sat,
+  kern<<<grid, T::THREADS, T::SMEM, s>>>(a, seed, go, split, part, y, sat,
                                          tickets, ticket, flags);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BM, int BN, int TM>
-int launch_tile_v(const ReadArgs& a, int vec, uint32_t seed, int split,
-                  float* part, float* y, int* sat, int* tickets, int* ticket,
-                  uint8_t* flags, cudaStream_t s) {
+int launch_tile_v(const ReadArgs& a, int vec, Seed seed, const uint8_t* go,
+                  int split, float* part, float* y, int* sat, int* tickets,
+                  int* ticket, uint8_t* flags, cudaStream_t s) {
   if (vec)
     return a.transpose ? launch_tile<BM, BN, true, true, TM>(
-                             a, seed, split, part, y, sat, tickets, ticket,
-                             flags, s)
+                             a, seed, go, split, part, y, sat, tickets,
+                             ticket, flags, s)
                        : launch_tile<BM, BN, true, false, TM>(
-                             a, seed, split, part, y, sat, tickets, ticket,
-                             flags, s);
+                             a, seed, go, split, part, y, sat, tickets,
+                             ticket, flags, s);
   return a.transpose ? launch_tile<BM, BN, false, true, TM>(
-                           a, seed, split, part, y, sat, tickets, ticket,
+                           a, seed, go, split, part, y, sat, tickets, ticket,
                            flags, s)
                      : launch_tile<BM, BN, false, false, TM>(
-                           a, seed, split, part, y, sat, tickets, ticket,
+                           a, seed, go, split, part, y, sat, tickets, ticket,
                            flags, s);
 }
 
@@ -258,8 +269,8 @@ int launch_tile_v(const ReadArgs& a, int vec, uint32_t seed, int split,
 // groups); their warps walk the groups grid-stride, so no block waits for
 // another to retire.
 template <int NCW, bool VEC>
-int launch_gemv(const ReadArgs& a, uint32_t seed, float* y, int* sat,
-                int* ticket, uint8_t* flags, cudaStream_t s) {
+int launch_gemv(const ReadArgs& a, Seed seed, const uint8_t* go, float* y,
+                int* sat, int* ticket, uint8_t* flags, cudaStream_t s) {
   auto kern = g::raw_gemv_kernel<NCW, VEC>;
   // all of the SM's L1 for x (the kernel takes no shared memory)
   static const cudaError_t carve = cudaFuncSetAttribute(
@@ -269,7 +280,7 @@ int launch_gemv(const ReadArgs& a, uint32_t seed, float* y, int* sat,
       g::resident_blocks(reinterpret_cast<const void*>(kern));
   if (fit <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int want = (a.out_dim + g::GW * NCW - 1) / (g::GW * NCW);
-  kern<<<want < fit ? want : fit, g::GW * 32, 0, s>>>(a, seed, y, sat,
+  kern<<<want < fit ? want : fit, g::GW * 32, 0, s>>>(a, seed, go, y, sat,
                                                       ticket, flags);
   return static_cast<int>(cudaGetLastError());
 }
@@ -283,6 +294,8 @@ int launch_gemv(const ReadArgs& a, uint32_t seed, float* y, int* sat,
 // outputs per warp; path 1: tile_m x tile_n tiles, each segment's
 // contraction in `split` ordered parts; vec: 16-byte aligned rows of x and
 // W) comes from the wrapper's plan(); shapes it does not allow are refused.
+// seed_at: the seed in device memory (a key schedule's seed table), else
+// null and `seed` by value; go: the read's predicate byte, or null.
 extern "C" int noisy_mvm_launch(const float* w, const float* x, float* y,
                                 uint8_t* flags, int* scratch, float* part,
                                 int B, int K, int out_dim, int n_seg,
@@ -290,12 +303,15 @@ extern "C" int noisy_mvm_launch(const float* w, const float* x, float* y,
                                 float alpha, int has_alpha, unsigned seed,
                                 unsigned row_offset, unsigned n_total,
                                 int path, int tile_m, int tile_n, int ncw,
-                                int vec, int split, void* stream) {
+                                int vec, int split,
+                                const unsigned long long* seed_at,
+                                const uint8_t* go, void* stream) {
   if (B <= 0) return 0;
   if (split < 1) return static_cast<int>(cudaErrorInvalidValue);
   const ReadArgs a{w,     x,         B,     K,     out_dim,    n_seg,
                    seg_len, transpose, sigma, alpha, has_alpha,
                    row_offset, n_total};
+  const Seed sd{seed, seed_at};
   int* ticket = scratch;
   int* sat = scratch + 4;
   int* tickets = scratch + 4 + B;
@@ -304,21 +320,21 @@ extern "C" int noisy_mvm_launch(const float* w, const float* x, float* y,
     if (transpose || B > g::GEMV_MAXB)
       return static_cast<int>(cudaErrorInvalidValue);
     if (ncw == 1)
-      return vec ? launch_gemv<1, true>(a, seed, y, sat, ticket, flags, s)
-                 : launch_gemv<1, false>(a, seed, y, sat, ticket, flags, s);
+      return vec ? launch_gemv<1, true>(a, sd, go, y, sat, ticket, flags, s)
+                 : launch_gemv<1, false>(a, sd, go, y, sat, ticket, flags, s);
     if (ncw == 2)
-      return vec ? launch_gemv<2, true>(a, seed, y, sat, ticket, flags, s)
-                 : launch_gemv<2, false>(a, seed, y, sat, ticket, flags, s);
+      return vec ? launch_gemv<2, true>(a, sd, go, y, sat, ticket, flags, s)
+                 : launch_gemv<2, false>(a, sd, go, y, sat, ticket, flags, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (tile_m == 128 && tile_n == 128)
-    return launch_tile_v<128, 128, 8>(a, vec, seed, split, part, y, sat,
+    return launch_tile_v<128, 128, 8>(a, vec, sd, go, split, part, y, sat,
                                       tickets, ticket, flags, s);
   if (tile_m == 64 && tile_n == 128)
-    return launch_tile_v<64, 128, 8>(a, vec, seed, split, part, y, sat,
+    return launch_tile_v<64, 128, 8>(a, vec, sd, go, split, part, y, sat,
                                      tickets, ticket, flags, s);
   if (tile_m == 32 && tile_n == 32)  // short contractions: 4x4 per thread
-    return launch_tile_v<32, 32, 4>(a, vec, seed, split, part, y, sat,
+    return launch_tile_v<32, 32, 4>(a, vec, sd, go, split, part, y, sat,
                                     tickets, ticket, flags, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

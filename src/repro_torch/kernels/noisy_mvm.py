@@ -19,7 +19,11 @@ one launch per read.  :func:`plan` picks its path from the shapes:
 
 The saturation flags are ORed into a scratch per device and stream that
 every call leaves zeroed (``kernels/gemm.py``); the last block writes the
-(B,) flags as bytes.  :func:`noisy_mvm` launches the kernel for CUDA
+(B,) flags as bytes.  The seed goes by value or, for a key tape's seed, by
+its address (``gemm.seed_arg``); a read may carry a predicate ``go``, a
+0-d bool device tensor that the kernel reads when it runs and, where it is
+false, returns at once (a bound-management retry that the card skips,
+``core/management.py``).  :func:`noisy_mvm` launches the kernel for CUDA
 tensors and runs :func:`noisy_mvm_plain`, the same function in plain
 PyTorch, only for CPU tensors.  ``launches`` counts kernel launches.
 """
@@ -34,7 +38,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.gemm import (
-    GEMV_MAXB, SMS, scratch, tile_shape, vec_rows)
+    GEMV_MAXB, SMS, scratch, seed_arg, tile_shape, vec_rows)
 from repro_torch.utils import fastrng
 
 _M32 = 0xFFFFFFFF
@@ -163,7 +167,7 @@ def plan(b: int, k_dim: int, out_dim: int, transpose: bool,
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
     ctypes.c_uint32, ctypes.c_uint32] + [ctypes.c_int] * 6 + [
-    ctypes.c_void_p]
+    ctypes.c_void_p] * 3
 
 
 def _lib():
@@ -186,14 +190,17 @@ def check_operands(w: torch.Tensor, *xs: torch.Tensor) -> None:
             raise ValueError("kernel operands must be contiguous")
 
 
-def noisy_mvm(w: torch.Tensor, x2d: torch.Tensor, seed: int, *,
+def noisy_mvm(w: torch.Tensor, x2d: torch.Tensor, seed: fastrng.Seed, *,
               sigma: float, alpha: float, n_seg: int = 1,
               transpose: bool = False, row_offset: Optional[int] = None,
-              total_rows: Optional[int] = None
+              total_rows: Optional[int] = None,
+              go: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Raw read of ``w`` (R, C) by ``x2d`` (B, C) — or (B, R) when
-    ``transpose`` — with u32 ``seed``.  Returns ``y`` (B, out) and the
-    per-row saturation flag (B,) bool."""
+    ``transpose`` — with u32 ``seed`` (an int, or a 0-d int64 tensor on
+    the device).  Returns ``y`` (B, out) and the per-row saturation flag
+    (B,) bool; with ``go`` (a 0-d bool tensor) both are left undefined
+    when it is false (the plain version reads all the same)."""
     global launches
     out_dim = w.shape[1] if transpose else w.shape[0]
     k_dim = w.shape[0] if transpose else w.shape[1]
@@ -205,13 +212,14 @@ def noisy_mvm(w: torch.Tensor, x2d: torch.Tensor, seed: int, *,
                                n_seg=n_seg, transpose=transpose,
                                row_offset=row_offset, total_rows=total_rows)
     check_operands(w, x2d)
-    if isinstance(seed, torch.Tensor):
-        # only iterative BM reads through here, and its retries are decided
-        # on the host: no captured step reaches this kernel
-        raise TypeError("the raw read takes its seed by value")
+    dev = w.device
+    seed_v, seed_at = seed_arg(seed, dev)
+    if go is not None and (go.dtype != torch.bool or go.numel() != 1
+                           or go.device != dev):
+        raise ValueError(f"the read's predicate is one bool on {dev}, got "
+                         f"{go.dtype} {tuple(go.shape)} on {go.device}")
     b = x2d.shape[0]
     total_rows = b if total_rows is None else total_rows
-    dev = w.device
     y = torch.empty(b, out_dim, dtype=torch.float32, device=dev)
     sat = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
@@ -228,10 +236,10 @@ def noisy_mvm(w: torch.Tensor, x2d: torch.Tensor, seed: int, *,
         w.data_ptr(), x2d.data_ptr(), y.data_ptr(), sat.data_ptr(),
         flags.data_ptr(), part.data_ptr(), b, k_dim, out_dim, n_seg,
         -(-k_dim // n_seg), int(transpose), float(sigma), float(alpha),
-        int(math.isfinite(alpha)), int(seed) & _M32,
+        int(math.isfinite(alpha)), seed_v,
         int(row_offset or 0) & _M32, (total_rows * n_seg * out_dim) & _M32,
         int(p.path == "tile"), p.tile_m, p.tile_n, p.ncw, int(p.vec),
-        p.split, stream)
+        p.split, seed_at, None if go is None else go.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"noisy_mvm kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -82,9 +82,11 @@ def _sigma(cfg: RPUConfig, transpose: bool) -> float:
 
 def noisy_mvm(w: Tensor, x: Tensor, key: prng.Key, cfg: RPUConfig, *,
               transpose: bool = False, row_offset: Optional[int] = None,
-              total_rows: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+              total_rows: Optional[int] = None,
+              go: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """Kernel-backed raw analog read with the tile API contract (arbitrary
-    leading batch dims; per-vector saturation flag)."""
+    leading batch dims; per-vector saturation flag); ``go``: the read's
+    device predicate (``kernels/noisy_mvm.py``)."""
     r, c = w.shape
     batch_shape = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1]).contiguous()
@@ -93,7 +95,7 @@ def noisy_mvm(w: Tensor, x: Tensor, key: prng.Key, cfg: RPUConfig, *,
             w, x2d, fastrng.key_to_seed(key), sigma=_sigma(cfg, transpose),
             alpha=float(cfg.out_bound), n_seg=_n_seg(w, cfg, transpose),
             transpose=transpose, row_offset=row_offset,
-            total_rows=total_rows)
+            total_rows=total_rows, go=go)
     out_dim = c if transpose else r
     return y2d.reshape(*batch_shape, out_dim), sat.reshape(batch_shape)
 

@@ -11,24 +11,27 @@ Per-layer device configs resolve through an
 :class:`~repro_torch.analog.policy.AnalogPolicy` over the layer names
 (``"K2=k2_multi_device,*=managed"``: the paper's 13-device K2, 416 x 401).
 A layer the policy leaves digital runs the exact FP path.  Images are NHWC,
-as in the JAX package.
+as in the JAX package.  The JAX package's deprecated ``layer_cfgs`` dict is
+not ported: :meth:`LeNetConfig.uniform` builds the exact-name policy that
+the JAX package makes of it (every rule labelled by its layer).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.analog.modules import AnalogConv2d, AnalogLinear, AnalogState
-from repro_torch.analog.policy import AnalogPolicy, AnalogRule
+from repro_torch.analog.policy import AnalogPolicy
 from repro_torch.core import conv_mapping
 from repro_torch.core.device import RPUConfig
 from repro_torch.utils import prng
 
 Tensor = torch.Tensor
 LAYERS = ("K1", "K2", "W3", "W4")
+Padding = Union[str, Sequence[Tuple[int, int]]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +39,9 @@ class LeNetConfig:
     mode: str = "analog"                     # 'analog' | 'digital'
     lr: float = 0.01                         # the paper's eta
     policy: Optional[AnalogPolicy] = None    # None: RPUConfig() everywhere
+    # K1/K2 padding: "VALID" (the paper), "SAME" or explicit
+    # ((top, bottom), (left, right)) pairs; W3's fan-in follows from it
+    conv_padding: Padding = "VALID"
 
     def resolved(self, layer: str) -> Optional[RPUConfig]:
         """Device config of one tile; None means the layer is digital."""
@@ -60,30 +66,42 @@ class LeNetConfig:
     @staticmethod
     def uniform(cfg: RPUConfig, mode: str = "analog",
                 lr: float = 0.01) -> "LeNetConfig":
-        """One device config on every tile."""
-        return LeNetConfig(mode=mode, lr=lr, policy=AnalogPolicy(
-            rules=(AnalogRule("*", cfg, "uniform"),)))
+        """One device config on every tile, as exact-name rules."""
+        return LeNetConfig(mode=mode, lr=lr, policy=AnalogPolicy.exact(
+            {layer: cfg for layer in LAYERS}))
 
     @staticmethod
     def from_policy(policy: AnalogPolicy, mode: str = "analog",
-                    lr: float = 0.01) -> "LeNetConfig":
-        return LeNetConfig(mode=mode, lr=lr, policy=policy)
+                    lr: float = 0.01,
+                    conv_padding: Padding = "VALID") -> "LeNetConfig":
+        return LeNetConfig(mode=mode, lr=lr, policy=policy,
+                           conv_padding=conv_padding)
+
+    def replace_layer(self, layer: str, cfg: RPUConfig) -> "LeNetConfig":
+        """``cfg`` on ``layer``: a rule in front of the policy."""
+        policy = (self.policy if self.policy is not None
+                  else AnalogPolicy.exact({n: RPUConfig() for n in LAYERS}))
+        return dataclasses.replace(self, policy=policy.prepend(layer, cfg,
+                                                               layer))
 
 
-def _pooled_conv_shape(hw: Tuple[int, int], in_c: int,
-                       kernel: int) -> Tuple[int, int]:
-    """(H, W) after one VALID conv (stride 1) + 2x2/2 maxpool."""
-    g = conv_mapping.conv_geometry((1, hw[0], hw[1], in_c), kernel)
+def _pooled_conv_shape(hw: Tuple[int, int], in_c: int, kernel: int,
+                       padding: Padding) -> Tuple[int, int]:
+    """(H, W) after one conv (stride 1) + 2x2/2 maxpool."""
+    g = conv_mapping.conv_geometry((1, hw[0], hw[1], in_c), kernel,
+                                   padding=padding)
     if g.oh % 2 or g.ow % 2:
-        raise ValueError(f"conv output {g.oh}x{g.ow} is not 2x2-poolable")
+        raise ValueError(
+            f"conv output {g.oh}x{g.ow} (padding {padding!r}) is not "
+            "2x2-poolable; pick a padding that yields even dims")
     return g.oh // 2, g.ow // 2
 
 
 def feature_sizes(cfg: LeNetConfig, hw: Tuple[int, int] = (28, 28)
                   ) -> Tuple[Tuple[int, int], Tuple[int, int], int]:
     """Post-pool spatial dims after K1 and K2, and the W3 fan-in."""
-    p1 = _pooled_conv_shape(hw, 1, 5)
-    p2 = _pooled_conv_shape(p1, 16, 5)
+    p1 = _pooled_conv_shape(hw, 1, 5, cfg.conv_padding)
+    p2 = _pooled_conv_shape(p1, 16, 5, cfg.conv_padding)
     return p1, p2, p2[0] * p2[1] * 32
 
 
@@ -94,10 +112,11 @@ def init(key: prng.Key, cfg: LeNetConfig, *, device="cpu"
     k1, k2, k3, k4 = prng.split(key, 4)
     _, _, flat = feature_sizes(cfg)
     kw = dict(device=device)
+    pad = cfg.conv_padding
     return {
-        "K1": AnalogConv2d.init(k1, 1, 16, 5, cfg.cfg("K1"),
+        "K1": AnalogConv2d.init(k1, 1, 16, 5, cfg.cfg("K1"), padding=pad,
                                 label=cfg.label("K1"), **kw),
-        "K2": AnalogConv2d.init(k2, 16, 32, 5, cfg.cfg("K2"),
+        "K2": AnalogConv2d.init(k2, 16, 32, 5, cfg.cfg("K2"), padding=pad,
                                 label=cfg.label("K2"), **kw),
         "W3": AnalogLinear.init(k3, flat, 128, cfg.cfg("W3"),
                                 label=cfg.label("W3"), **kw),
@@ -122,12 +141,14 @@ def apply(params: Dict[str, AnalogState], images: Tensor,
     ks = prng.split(key, 4)
     lr = cfg.lr
     h = AnalogConv2d.apply(params["K1"], images, ks[0], lr=lr,
-                           mode=cfg.layer_mode("K1"), cfg=cfg.cfg("K1"))
+                           mode=cfg.layer_mode("K1"), cfg=cfg.cfg("K1"),
+                           padding=cfg.conv_padding)
     h = _maxpool2(torch.tanh(h))                     # (B, 12, 12, 16)
     h = AnalogConv2d.apply(params["K2"], h, ks[1], lr=lr,
-                           mode=cfg.layer_mode("K2"), cfg=cfg.cfg("K2"))
+                           mode=cfg.layer_mode("K2"), cfg=cfg.cfg("K2"),
+                           padding=cfg.conv_padding)
     h = _maxpool2(torch.tanh(h))                     # (B, 4, 4, 32)
-    h = h.reshape(h.shape[0], -1)                    # (B, 512)
+    h = h.reshape(h.shape[0], -1)                    # (B, 512 for VALID)
     h = torch.tanh(AnalogLinear.apply(params["W3"], h, ks[2], lr=lr,
                                       mode=cfg.layer_mode("W3"),
                                       cfg=cfg.cfg("W3")))
@@ -141,3 +162,10 @@ def loss_fn(params, images: Tensor, labels: Tensor, key: prng.Key,
     cycle unscaled, as in the paper's minibatch-of-1 training."""
     logp = torch.log_softmax(apply(params, images, key, cfg), dim=-1)
     return -torch.sum(torch.gather(logp, 1, labels.long()[:, None]))
+
+
+def accuracy(params, images: Tensor, labels: Tensor, key: prng.Key,
+             cfg: LeNetConfig) -> Tensor:
+    """Noisy-forward accuracy: inference reads the same analog arrays."""
+    logits = apply(params, images, key, cfg)
+    return torch.mean((torch.argmax(logits, -1) == labels).float())

@@ -14,14 +14,20 @@ i * 256)``.  The epoch shuffle is a ``torch.randperm`` seeded from the key
 data of ``fold_in(k_data, e)``: not the JAX package's
 ``jax.random.permutation`` (parity tests feed both the same batches).
 
+``log_path`` writes the JAX package's JSON history (the same keys: the
+layers' device settings from :func:`_describe`, the protocol, the test
+errors and, at the end, the result).
+
 Runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import functools
+import json
+import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -78,13 +84,16 @@ def python_epoch(step, params, xs: torch.Tensor, ys: torch.Tensor,
 
 def train(cfg: lenet.LeNetConfig, *, epochs: int = 15, batch: int = 8,
           n_train: int = 8192, n_test: int = 2048, seed: int = 0,
-          verbose: bool = True, return_params: bool = False,
+          log_path: Optional[str] = None, verbose: bool = True,
+          eval_every_epoch: bool = True, return_params: bool = False,
           device="cuda", engine: str = "scan") -> Dict:
     """Train per the paper's protocol; returns ``{"test_error": [...],
     "final_error", "mean_last5", "std_last5", "wallclock_s",
     "steps_per_sec", "engine", "device"}`` (and ``"params"`` on request).
-    ``engine``: ``"scan"`` (the epoch engine; raises ``ValueError`` under
-    iterative bound management) or ``"python"`` (the per-step loop)."""
+    ``engine``: ``"scan"`` (the epoch engine) or ``"python"`` (the
+    per-step loop).  Without ``eval_every_epoch`` only the last epoch is
+    evaluated; ``log_path`` gets the JSON history after each evaluation
+    and the result at the end."""
     if engine not in ("scan", "python"):
         raise ValueError(f"unknown engine {engine!r}")
     from repro_torch.data import mnist
@@ -109,12 +118,16 @@ def train(cfg: lenet.LeNetConfig, *, epochs: int = 15, batch: int = 8,
     t0 = time.perf_counter()
     for epoch in range(epochs):
         run_epoch(params, xtr_d, ytr_d, k_data, k_train, epoch)
+        if not (eval_every_epoch or epoch == epochs - 1):
+            continue
         err = evaluate(params, xte_d, yte_d, prng.fold_in(k_eval, epoch))
         history.append(err)
         if verbose:
             print(f"[epoch {epoch + 1:3d}/{epochs}] test error "
                   f"{100 * err:6.2f}%  ({time.perf_counter() - t0:6.1f}s)",
                   flush=True)
+        if log_path:
+            _dump(log_path, cfg, history, epochs, batch, n_train, seed)
     wallclock = time.perf_counter() - t0
     result = {
         "test_error": history,
@@ -126,6 +139,54 @@ def train(cfg: lenet.LeNetConfig, *, epochs: int = 15, batch: int = 8,
         "engine": engine,
         "device": str(torch.device(device)),
     }
+    if log_path:
+        _dump(log_path, cfg, history, epochs, batch, n_train, seed,
+              extra=result)
     if return_params:
         result["params"] = params
     return result
+
+
+def _describe(cfg: lenet.LeNetConfig) -> Dict:
+    """The run's mode, rate and each layer's device settings, under the
+    JAX package's keys."""
+    out = {"mode": cfg.mode, "lr": cfg.lr}
+    if cfg.policy:
+        for name in lenet.LAYERS:
+            c = cfg.resolved(name)
+            if c is None:        # the policy pins this layer digital
+                out[name] = {"mode": "digital", "rule": cfg.label(name)}
+                continue
+            out[name] = {
+                "bl": c.bl, "nm": c.noise_management,
+                "bm": c.bound_management, "um": c.update_management,
+                "noise": c.read_noise, "bound": c.out_bound,
+                "dpw": c.devices_per_weight, "dtod": c.dw_min_dtod,
+                "ctoc": c.dw_min_ctoc, "imb": c.imbalance_dtod,
+                "rule": cfg.label(name),
+            }
+    return out
+
+
+def log_payload(cfg: lenet.LeNetConfig, history: List[float], epochs: int,
+                batch: int, n_train: int, seed: int,
+                extra: Optional[Dict] = None) -> Dict:
+    """The ``log_path`` JSON: config, protocol, test errors and the result's
+    other keys (the JAX package's; the device is not among them)."""
+    payload = {
+        "config": _describe(cfg),
+        "protocol": {"epochs": epochs, "batch": batch, "n_train": n_train,
+                     "seed": seed},
+        "test_error": history,
+    }
+    if extra:
+        payload.update({k: v for k, v in extra.items()
+                        if k not in ("test_error", "device", "params")})
+    return payload
+
+
+def _dump(path, cfg, history, epochs, batch, n_train, seed, extra=None):
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(log_payload(cfg, history, epochs, batch, n_train, seed,
+                              extra), f, indent=1)

@@ -26,22 +26,23 @@ version fills the seed table before each step, and the kernels' plain
 versions read it.  Either way the epoch is bit-identical to
 ``cnn.train(engine="python")``: the same batches and the same keys.
 
-Iterative bound management is refused: its retry loop reads the
-saturation flags back to the host (the ``.item()`` at
-``core/management.py:68``).  The data-parallel split and the sequence
-engines are not ported.
+Under the paper's iterative bound management the step's reads take the
+predicated form of the retry loop (``with_bound_management_predicated`` in
+``core/management.py``: every retry unrolled, each on a device predicate,
+its keys on the tape), so that step too is one graph replay.
+The data-parallel split and the sequence engines are not ported.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.analog.modules import AnalogState
-from repro_torch.core import management
 from repro_torch.kernels import gemm, ops
 from repro_torch.kernels.key_schedule import key_schedule
 from repro_torch.models import lenet
@@ -73,18 +74,6 @@ def epoch_permutation(k_data: prng.Key, epoch: int, n: int) -> torch.Tensor:
     k0, k1 = prng.fold_in(k_data, epoch)
     g = torch.Generator().manual_seed((k0 << 32) | k1)
     return torch.randperm(n, generator=g)
-
-
-def _check_capturable(cfg: lenet.LeNetConfig) -> None:
-    for layer in lenet.LAYERS:
-        if (cfg.layer_mode(layer) == "analog"
-                and management.bm_is_iterative(cfg.cfg(layer))):
-            raise ValueError(
-                f"{layer}: iterative bound management decides each retry on "
-                "the host (the saturation check's .item() at "
-                "core/management.py:68), so its steps cannot run as a "
-                "captured graph; use engine='python' or "
-                "bm_mode='two_phase'")
 
 
 def make_cnn_step_fn(cfg: lenet.LeNetConfig,
@@ -153,9 +142,19 @@ class _Graphed:
         # host, and a replay runs the instantiated graph either way
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = ops.launch_counts()
-        with torch.cuda.graph(self.graph, stream=s):
-            key_schedule(self.tape, self.base, self.ctr[1])
-            self.out = self._recorded(state)
+        # An earlier program that is garbage in a reference cycle frees its
+        # graph when the cycle collector runs; a graph destroyed during this
+        # capture would invalidate it (CUDA error 901), so the collector is
+        # off while capturing.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, stream=s):
+                key_schedule(self.tape, self.base, self.ctr[1])
+                self.out = self._recorded(state)
+        finally:
+            if collecting:
+                gc.enable()
         self.graph.instantiate()
         # the wrappers counted at the capture, which launches nothing; each
         # replay launches what they counted
@@ -221,7 +220,6 @@ def make_cnn_epoch_fn(cfg: lenet.LeNetConfig, opt: Optional[Callable] = None,
     whose nodes ``program.graph.debug_dump`` writes as a DOT file, the
     launches per replay by kind, tape, counter and buffers).  A replay adds
     its launches to ``ops.launch_counts``."""
-    _check_capturable(cfg)
     step = make_cnn_step_fn(cfg, opt)
 
     def run_epoch(params: Params, xs: torch.Tensor, ys: torch.Tensor,
@@ -281,7 +279,6 @@ def make_cnn_eval_fn(cfg: lenet.LeNetConfig, *, batch: int = 256
     ``fold_in(key, i * batch)`` (the reference's schedule, and
     ``cnn.make_eval``'s), one graph replay per batch; the error is
     ``1 - correct / n`` (one read-back per call)."""
-    _check_capturable(cfg)
 
     def evaluate(params: Params, xs: torch.Tensor, ys: torch.Tensor,
                  key: prng.Key) -> float:

@@ -39,6 +39,18 @@ POLICIES = pytest.mark.parametrize("policy", [FUSED, SEPARATE, PAPER],
 M32 = 0xFFFFFFFF
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """With several pytest-xdist workers at once, torch's thread pool in
+    each oversubscribes the cores (the iterative-BM engine tests took 162 s
+    instead of 10 beside five busy workers), so this module's plain-version
+    kernels run on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(policy):
     return tlenet.LeNetConfig.from_policy(tpresets.parse_policy(policy))
 
@@ -153,13 +165,50 @@ def test_run_epoch_keeps_the_python_schedule_across_epochs():
     assert run.program.ctr.tolist() == [2, 4]
 
 
-def test_scan_refuses_iterative_bm():
-    cfg = _cfg("nm_bm:use_pallas=true")
-    with pytest.raises(ValueError, match=r"management\.py:68"):
-        tcnn.train(cfg, epochs=1, n_train=8, n_test=8, device="cpu",
-                   verbose=False)
-    with pytest.raises(ValueError, match=r"\.item\(\)"):
-        tengine.make_cnn_eval_fn(cfg)
+# the paper's iterative BM; at alpha = 1 the first steps' reads saturate
+# and retry (at alpha = 12 none does)
+ITERATIVE = "nm_bm:use_pallas=true"
+ITERATIVE_A1 = ITERATIVE + ":out_bound=1"
+
+
+@pytest.mark.parametrize("policy", [ITERATIVE, ITERATIVE_A1],
+                         ids=["alpha12", "alpha1"])
+def test_scan_matches_python_under_iterative_bm(policy):
+    """Three steps and an evaluation through the epoch engine (the
+    predicated retries, their keys on the tape) leave every tile bitwise
+    equal to the per-step loop's (the host loop) and report the same
+    error; at alpha = 1 retries run.  Evaluation batches of 8 keep the
+    plain reads small."""
+    from repro_torch.core import management
+    cfg = _cfg(policy)
+    xs, ys = _images(24)
+    k_data, k_train, k_eval = prng.key(3), prng.key(2), prng.key(4)
+    loop, scan = (tlenet.init(prng.key(0), cfg) for _ in range(2))
+    tcnn.python_epoch(tcnn.make_train_step(cfg), loop, xs, ys, k_data,
+                      k_train, 0, 8)
+    with management.count_retries("cpu") as n:
+        tengine.make_cnn_epoch_fn(cfg, batch=8)(scan, xs, ys, k_data,
+                                                k_train, 0)
+        err = tengine.make_cnn_eval_fn(cfg, batch=8)(scan, xs[:8], ys[:8],
+                                                     k_eval)
+    for name in tlenet.LAYERS:
+        assert torch.equal(scan[name].w, loop[name].w)
+    assert err == tcnn.make_eval(cfg, batch=8)(loop, xs[:8], ys[:8], k_eval)
+    assert (int(n) > 0) == (policy == ITERATIVE_A1)
+
+
+def test_iterative_step_fits_the_tape():
+    """An ITERATIVE step records every retry's key: 11 reads' splits for
+    each of its 8 reads, well inside TAPE_SLOTS."""
+    cfg = _cfg(ITERATIVE)
+    x, y = _images(2)
+    tape = prng.KeyTape("cpu")
+    tengine.make_cnn_step_fn(cfg)(tlenet.init(prng.key(0), cfg), x, y,
+                                  tape.begin())
+    tape.end()
+    parent, _, seeds = tape.recorded
+    assert len(seeds) == 8 * 11 + 4 * 3      # reads, update streams
+    assert len(parent) + 1 < prng.TAPE_SLOTS
 
 
 @pytest.mark.parametrize("policy", [FUSED, PAPER], ids=["fused", "paper"])

@@ -43,3 +43,11 @@ def test_walker_sees_forbidden_imports(tmp_path):
                  "from repro_torch.utils import prng\n")
     mods = [m.split(".")[0] for m in _imported_modules(p)]
     assert mods.count("jax") == 1 and mods.count("repro") == 2
+
+
+def test_covers_every_package_of_the_port():
+    """Every package of the port, the figure suite's included, is walked."""
+    pkgs = {p.parent.name for p in FILES if p.name == "__init__.py"}
+    assert {"benchmarks", "core", "kernels", "train", "models"} <= pkgs
+    names = {p.name for p in FILES if p.parent.name == "benchmarks"}
+    assert {"cnn_suite.py", "bands.py", "table2_alexnet.py"} <= names
