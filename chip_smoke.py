@@ -14,7 +14,9 @@ Phases, each of which makes the script exit non-zero when it fails:
       the managed read at qwen3_14b's (prefill B 2000 and decode B 2,
       contractions in 2 and 5 segments, the 151936-row unembed; NM off and
       on): max |diff| against the stated tolerance, equal saturation
-      flags;
+      flags; and the grid read (one #1 launch per block) against the plain
+      grid read at deepseek_7b's 11008x4096, forward and transpose, B 4
+      and 128, on grids 2x2 and 3x1 (rows padded to 11010);
   (c) serve the full-size deepseek_7b (30 layers, d 4096, vocab 102400,
       random weights from a seed) through ``repro_torch.launch.serve`` under
       two-phase bound management, launch counters read around the run;
@@ -46,7 +48,8 @@ Phases, each of which makes the script exit non-zero when it fails:
       and no memset or copy;
   (g2) the epoch engine (``repro_torch.train.engine``): under FUSED,
       SEPARATE and PAPER, 20 steps through ``engine="python"`` (twice from
-      one state: the loop is bitwise equal to itself) and through
+      one state: the loop is bitwise equal to itself; no plain-version
+      call) and through
       ``engine="scan"`` (one CUDA graph replay per step, its keys and seeds
       from the key-schedule kernel) from the same tiles, keys and batches:
       every tile bitwise equal; the key-schedule kernel's tables bitwise
@@ -63,6 +66,17 @@ Phases, each of which makes the script exit non-zero when it fails:
       counts and one key schedule; and a counted epoch of each engine
       (``management.count_retries``) shows retries ran, as many in the
       graphed steps as in the loop's;
+  (g3) the full-width LeNet on a 2x2 grid of sub-tiles (``core/
+      tile_grid.py``: each read one #1 launch per block, each update one
+      #4 launch over the padded streams) as g2 runs it, under GRID_2P
+      (two-phase BM: 64 raw reads and 4 pulse counts a step) and GRID_IT
+      (the paper's iterative BM at alpha 0.5, where the first steps'
+      block reads saturate and retry: 352 predicated raw reads and 4
+      pulse counts): graphed tiles bitwise the loop's over 20 steps, the
+      captured step's nodes (only #1 and #4 among the analog kernels, and
+      no copy or memset beside #4's own), both engines' steps/s, a
+      replayed step's profile, retries counted in both engines; then one
+      GRID_2P step on the card against the CPU (as r2);
   (p1) the paper's figure pair 1 through ``repro_torch.benchmarks.
       cnn_suite`` at its band protocol (6 epochs of 2048 images), seed 0:
       fig3a_baseline (no management) and fig3b_nm_bm (NM and the paper's
@@ -156,6 +170,13 @@ ITERATIVE = "nm_bm:use_pallas=true"
 # saturate, and the engine's check sees retries run
 ITERATIVE_A1 = ITERATIVE + ":out_bound=1"
 LEARN = "nm_bm:use_pallas=true:bm_mode=two_phase:fuse_bwd_update=true"
+# LeNet on a 2x2 grid of sub-tiles (slice 11): every read one #1 launch per
+# block, every update one #4 launch over the padded streams
+GRID_2P = "managed:use_pallas=true:bm_mode=two_phase:tile_grid=2x2"
+GRID_IT = "nm_bm:use_pallas=true:tile_grid=2x2"
+# a block integrates part of the contraction: at alpha 1 no block read of
+# the first steps saturates, at alpha 0.5 they retry
+GRID_IT_A05 = GRID_IT + ":out_bound=0.5"
 LENET_BATCH, LENET_STEPS, ITERATIVE_STEPS = 8, 20, 5
 PER_STEP = {
     "fused": {"managed_read": 2, "managed_read_conv": 2, "bwd_update": 2,
@@ -167,7 +188,16 @@ PER_STEP = {
     # 8 reads (K1-W4 forward and transpose), each a first read and
     # bm_max_iters = 10 predicated retries; 4 pulse counts
     "iterative": {"noisy_read": 88, "pulse_counts": 4},
+    # 8 managed reads x 2 two-phase reads x 4 blocks; 4 pulse counts
+    "grid_2p": {"noisy_read": 64, "pulse_counts": 4},
+    # 8 managed reads x 11 predicated reads x 4 blocks; 4 pulse counts
+    "grid_it": {"noisy_read": 352, "pulse_counts": 4},
 }
+# deepseek_7b's wg/wi read (11008x4096) on sub-tile grids, at the decode's
+# and the prefill's batch: (grid, B, transpose); (3, 1) pads 11008 rows to
+# 11010, (2, 2) reads each 5504-row transpose block in 2 segments
+GRID_READ_CASES = [(grid, b, tr) for grid in ((2, 2), (3, 1))
+                   for b in (BATCH, 128) for tr in (False, True)]
 
 # qwen3_14b serving with the flash-attention prefill (slice 3)
 QWEN_BATCH, QWEN_PROMPT, QWEN_GEN = 2, 1000, 16
@@ -424,6 +454,52 @@ def kernels_vs_plain(results):
             del y, s, yp, sp
         del w, x
     check(ok, "a kernel disagrees with its plain version")
+    grid_reads_vs_plain(results)
+
+
+def grid_reads_vs_plain(results):
+    """The grid read (``core/tile_grid.py``: one #1 launch per block, the
+    partial reads added in contraction-block order) against the plain grid
+    read (the same function with ``use_pallas`` off) on the card, at
+    GRID_READ_CASES: within 1e-5 of the largest sum |x||w|, equal flags,
+    one launch per block."""
+    import torch
+    from repro_torch.core import device as dev
+    from repro_torch.core import tile_grid
+    from repro_torch.kernels import noisy_mvm as kn
+    from repro_torch.utils import prng
+
+    ok = True
+    for i, (grid, b, tr) in enumerate(GRID_READ_CASES):
+        w, x = _inputs(b, 11008, 4096, tr, seed=300 + i)
+        cfg = dev.RPUConfig(read_noise=SIGMA, out_bound=ALPHA,
+                            tile_grid=grid, use_pallas=True)
+        mag = float((x.abs() @ (w.abs() if tr else w.abs().T)).max())
+        n0 = kn.launches
+        y, s = tile_grid.grid_analog_mvm(w, x, prng.key(11), cfg,
+                                         transpose=tr)
+        launched = kn.launches - n0
+        yp, sp = tile_grid.grid_analog_mvm(
+            w, x, prng.key(11), dataclasses.replace(cfg, use_pallas=False),
+            transpose=tr)
+        torch.cuda.synchronize()
+        err = float((y - yp).abs().max())
+        tol = 1e-5 * max(1.0, mag)
+        agree = int((s == sp).sum())
+        good = (err <= tol and agree == b and launched == grid[0] * grid[1]
+                and bool(torch.isfinite(y).all()) and y.shape == yp.shape)
+        ok &= good
+        case = (f"grid {grid[0]}x{grid[1]} {'transpose ' if tr else ''}"
+                f"11008x4096 B={b}")
+        print(f"[check] noisy_mvm   {case:<38} max|diff|={err:.3e} "
+              f"tol={tol:.3e} sat agree {agree}/{b} (set: {int(sp.sum())}) "
+              f"launches {launched} {'ok' if good else 'FAIL'}")
+        results.setdefault("checks", []).append(dict(
+            kernel="noisy_mvm", case=case, max_abs_err=err, tol=tol,
+            sat_agree=agree, rows=b, sat_set=int(sp.sum()),
+            launches=launched, ok=good))
+        del w, x, y, s, yp, sp
+    check(ok, "a grid read disagrees with the plain grid read")
 
 
 # ---------------------------------------------------------------------------
@@ -1352,9 +1428,12 @@ ENGINE_POLICIES = (("fused", FUSED), ("separate", SEPARATE), ("paper", PAPER),
                    ("iterative", ITERATIVE_A1))
 # analog kernel nodes of one captured step (a tiled managed read is two
 # kernels: tile and finish; ITERATIVE's 88 raw reads and 4 pulse counts)
-GRAPH_ANALOG = {"fused": 8, "paper": 8, "separate": 16, "iterative": 92}
+GRAPH_ANALOG = {"fused": 8, "paper": 8, "separate": 16, "iterative": 92,
+                "grid_2p": 68, "grid_it": 356}
+GRID_POLICIES = (("grid_2p", GRID_2P), ("grid_it", GRID_IT_A05))
+GRID_STEPS = tuple(name for name, _ in GRID_POLICIES)
 # the steps whose pulse counts zero their output by memset
-MEMSET_STEPS = ("separate", "iterative")
+MEMSET_STEPS = ("separate", "iterative") + GRID_STEPS
 
 
 def _graph_census(graph, path):
@@ -1418,14 +1497,18 @@ def engine_parity(name, policy, results):
     k_data, k_train = prng.key(3), prng.key(2)
     step = cnn.make_train_step(cfg)
     loops = []
-    for _ in range(2):
-        p = lenet.init(prng.key(0), cfg, device=DEV)
-        cnn.python_epoch(step, p, xs, ys, k_data, k_train, 0, LENET_BATCH)
-        loops.append(p)
+    with _PlainCalls() as plain:
+        for _ in range(2):
+            p = lenet.init(prng.key(0), cfg, device=DEV)
+            cnn.python_epoch(step, p, xs, ys, k_data, k_train, 0,
+                             LENET_BATCH)
+            loops.append(p)
     torch.cuda.synchronize()
     same = {n: torch.equal(loops[0][n].w, loops[1][n].w) for n in lenet.LAYERS}
-    print(f"[{label}] loop twice from one state, bitwise equal: {same}")
+    print(f"[{label}] loop twice from one state, bitwise equal: {same}; "
+          f"plain-version calls {plain.calls}")
     check(all(same.values()), f"{name}: the loop differs from itself")
+    check(plain.calls == 0, f"{plain.calls} plain-version calls on the card")
 
     p_scan = lenet.init(prng.key(0), cfg, device=DEV)
     run = engine.make_cnn_epoch_fn(cfg, batch=LENET_BATCH)
@@ -1482,6 +1565,14 @@ def engine_parity(name, policy, results):
     if name not in MEMSET_STEPS:
         check(census["memset"] == census["memcpy"] == 0,
               f"{name}: the captured step holds a memset or copy: {census}")
+    if name in GRID_STEPS:
+        # #4 zeroes its two outputs by memset; nothing else copies or
+        # zeroes, so no block read brings a copy or a memset
+        check(census["memcpy"] == 0
+              and census["memset"] == 2 * census["pulse_counts"],
+              f"{name}: the captured step holds {census['memset']} memsets "
+              f"and {census['memcpy']} copies, expected only the pulse "
+              "counts' two memsets each")
 
     # one more epoch of each engine, timed (both warm)
     loop_s = _timed(lambda: cnn.python_epoch(step, loops[0], xs, ys, k_data,
@@ -1532,7 +1623,18 @@ def lenet_engines(results):
     engine_retries(ITERATIVE_A1, results)
 
 
-def engine_retries(policy, results):
+def lenet_grid_engines(results):
+    """(g3) the full-width LeNet on a 2x2 grid of sub-tiles under GRID_2P
+    and GRID_IT_A05 through both engines (``engine_parity``), the retries of
+    the graphed iterative grid steps, and one GRID_2P step on the card
+    against the CPU."""
+    for name, policy in GRID_POLICIES:
+        engine_parity(name, policy, results)
+    engine_retries(GRID_IT_A05, results, label="engine_retries_grid")
+    step_vs_cpu("GRID_2P", GRID_2P, "grid_step_reference", results)
+
+
+def engine_retries(policy, results, label="engine_retries"):
     """Iterative BM's retries in graphed steps: from the same tiles, two
     epochs of each engine with the retry counter on
     (``management.count_retries``); the second epoch's counts (the graph's
@@ -1566,12 +1668,11 @@ def engine_retries(policy, results):
         scan_n.n.zero_()
     equal = {k: torch.equal(p_loop[k].w, p_scan[k].w) for k in lenet.LAYERS}
     (loop0, scan0), (loop1, scan1) = counts
-    print(f"[engine_retries] {policy}: BM retries, epoch 1 loop {loop0} / "
+    print(f"[{label}] {policy}: BM retries, epoch 1 loop {loop0} / "
           f"graph {scan0} (its warm-up step included); epoch 2 loop "
           f"{loop1} / graph {scan1} ({LENET_STEPS} replays); tiles bitwise "
           f"equal after 2 epochs: {equal}")
-    results["engine_retries"] = dict(policy=policy, counts=counts,
-                                     tiles_equal=equal)
+    results[label] = dict(policy=policy, counts=counts, tiles_equal=equal)
     check(all(equal.values()), "iterative: graphed steps differ from the "
           "loop in the counted epochs")
     check(loop1 == scan1 > 0,
@@ -1693,11 +1794,16 @@ def _one_step(params, x, y, key, cfg):
 
 
 def step_reference(results):
-    import torch
+    step_vs_cpu("FUSED", FUSED, "step_reference", results)
+
+
+def step_vs_cpu(what, policy, label, results):
+    """One training step under ``policy`` on the card against the plain CPU
+    step on the same parameters, images and key."""
     from repro_torch.analog import presets
     from repro_torch.models import lenet
     from repro_torch.utils import prng
-    cfg = lenet.LeNetConfig.from_policy(presets.parse_policy(FUSED))
+    cfg = lenet.LeNetConfig.from_policy(presets.parse_policy(policy))
     p_cpu = lenet.init(prng.key(7), cfg, device="cpu")
     p_gpu = lenet.init(prng.key(7), cfg, device=DEV)
     x, y = _lenet_images(LENET_BATCH, seed=5)
@@ -1712,13 +1818,13 @@ def step_reference(results):
         share = float((diff > STEP_W_ATOL).float().mean())
         rows[n] = dict(share=share, max=float(diff.max()))
         ok &= share <= STEP_W_SHARE and rows[n]["max"] <= STEP_W_MAX
-    print(f"[reference] FUSED step, card vs CPU: logits max|diff| {lerr:.2e}"
+    print(f"[reference] {what} step, card vs CPU: logits max|diff| {lerr:.2e}"
           f" (tol {STEP_LOGIT_ATOL}), x_bar max|diff|/max|x_bar| "
           f"{xerr:.2e} (tol {STEP_XBAR_RTOL}), weights "
           + ", ".join(f"{n}: {r['share']:.1e} of entries > 1e-6, max "
                       f"{r['max']:.1e}" for n, r in rows.items()))
-    results["step_reference"] = dict(logit_err=lerr, xbar_rel_err=xerr,
-                                     weights=rows, ok=ok)
+    results[label] = dict(policy=policy, logit_err=lerr, xbar_rel_err=xerr,
+                          weights=rows, ok=ok)
     check(ok, "the card's training step disagrees with the CPU step")
 
 
@@ -2310,6 +2416,11 @@ def summary_line(results):
             plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"]))
+        if meta["kind"] in ("noisy_read", "pulse_counts"):
+            # the same kernel's launches in g3's 20-step grid epochs
+            kernels[-1]["launches_grid"] = {
+                name: results[f"engine_{name}"]["launches"][meta["kind"]]
+                for name in GRID_STEPS}
     return {"kernels": kernels}
 
 
@@ -2352,6 +2463,8 @@ PHASES = [
     ("f", "training kernels vs plain versions", training_kernels_vs_plain),
     ("g", "LeNet training on the card", lenet_training),
     ("g2", "the epoch engine: graphed steps vs the loop", lenet_engines),
+    ("g3", "LeNet on a 2x2 grid of sub-tiles: graphed steps vs the loop",
+     lenet_grid_engines),
     ("p1", "figure pair 1 in its JAX seed band", figure_pair),
     ("h", "learning", lenet_learning),
     ("r2", "one training step, card vs CPU", step_reference),

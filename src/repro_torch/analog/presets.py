@@ -42,8 +42,8 @@ _PRESETS: Dict[str, Callable[[], Optional[RPUConfig]]] = {
                            .without_out_bound().without_variations()),
 }
 
-# modifiers whose subsystems (tile grids, streaming chunks) are not ported
-_UNPORTED = ("tile_grid", "update_chunk", "conv_stream_chunk")
+# modifiers whose subsystem (the streaming chunks) is not ported
+_UNPORTED = ("update_chunk", "conv_stream_chunk")
 
 
 def preset_names() -> List[str]:
@@ -66,6 +66,9 @@ def _coerce(field: str, value: str):
     if field not in _FIELD_NAMES:
         raise KeyError(f"RPUConfig has no field {field!r}")
     v = value.strip()
+    if field == "tile_grid":
+        r, c = v.lower().split("x")
+        return (int(r), int(c))
     if v.lower() in ("true", "false"):
         return v.lower() == "true"
     if v.lower() in ("none", "null"):
@@ -96,7 +99,11 @@ def resolve_spec(spec: str) -> Optional[RPUConfig]:
         k = k.strip()
         if k in _UNPORTED:
             raise NotImplementedError(f"modifier {k!r} is not ported yet")
-        cfg = dataclasses.replace(cfg, **{k: _coerce(k, v)})
+        val = _coerce(k, v)
+        if k == "tile_grid":
+            cfg = cfg.with_tile_grid(*val)
+        else:
+            cfg = dataclasses.replace(cfg, **{k: val})
     return cfg
 
 
@@ -148,6 +155,8 @@ def describe_cfg(cfg: Optional[RPUConfig]) -> str:
         bits.append(f"#_d={cfg.devices_per_weight}")
     if cfg.dw_min_dtod == 0 and cfg.w_bound_dtod == 0:
         bits.append("no-dtod")
+    if cfg.tile_grid and tuple(cfg.tile_grid) != (1, 1):
+        bits.append(f"grid={cfg.tile_grid[0]}x{cfg.tile_grid[1]}")
     if cfg.use_pallas:
         bits.append("cuda")
     if cfg.seeded_maps:

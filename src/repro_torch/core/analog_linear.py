@@ -12,7 +12,9 @@ The layer is an ordinary differentiable PyTorch function whose
   learning rate (Eq. 1).
 
 With ``cfg.fuse_bwd_update`` (and an eligible tile) the backward read and
-the update are one kernel launch (``core.tile.tile_backward_update``).
+the update are one kernel launch (``core.tile.tile_backward_update``).  With
+``cfg.tile_grid`` the same cycles run on the tile's sub-tile grid
+(``core/tile_grid.py``), which no fused kernel takes.
 
 Biases live on the array as an extra always-on input column (the paper's K1
 layout).  ``mode='digital'`` computes an exact FP dense layer over the

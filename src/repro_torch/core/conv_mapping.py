@@ -13,8 +13,10 @@ Under ``cfg.use_pallas`` the forward read is the implicit-im2col kernel
 (``kernels/conv_mvm.py``) and, with ``cfg.fuse_bwd_update``, the backward
 read and the update are one kernel launch (``kernels/bwd_update_mvm.py``);
 otherwise the columns are gathered here and go through the dense tile
-cycles.  ``col2im_add`` applies the taps in descending order, the JAX
-package's per-pixel accumulation order.
+cycles.  A tile with a sub-tile grid (``cfg.tile_grid``) is never eligible
+for either kernel: its columns take the dense cycles, which run on the grid
+(``core/tile_grid.py``).  ``col2im_add`` applies the taps in descending
+order, the JAX package's per-pixel accumulation order.
 
 Layouts follow the JAX package: activations are NHWC.
 """

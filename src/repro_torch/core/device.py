@@ -56,7 +56,7 @@ class RPUConfig:
     # --- physical array-size limit (Discussion: max 4096x4096) --------------
     max_array_rows: int = 4096
     max_array_cols: int = 4096
-    # --- sharded tile grid / streaming chunks (not in this package yet) -----
+    # --- sub-tile grid (core/tile_grid.py); streaming chunks (not ported) --
     tile_grid: Optional[Tuple[int, int]] = None
     update_chunk: Optional[int] = None
     conv_stream_chunk: Optional[int] = None
@@ -90,6 +90,14 @@ class RPUConfig:
         if bl is not None:
             kw["bl"] = bl
         return dataclasses.replace(self, **kw)
+
+    def with_tile_grid(self, rows: int, cols: int) -> "RPUConfig":
+        """Decompose the tile into a (rows x cols) sub-tile grid
+        (``core/tile_grid.py``)."""
+        if rows < 1 or cols < 1:
+            raise ValueError(
+                f"tile_grid must be >= (1, 1), got {(rows, cols)}")
+        return dataclasses.replace(self, tile_grid=(rows, cols))
 
     def normalized_for_lm(self) -> "RPUConfig":
         """LM dense tiles simulate in float32 with seeded device maps."""

@@ -19,6 +19,10 @@ a key tape (``prng.DeviceKey``: the epoch engine's captured step) it is
 unrolled, and each runs on a device predicate, so no retry decision leaves
 the card and one CUDA graph holds the whole loop.
 
+The raw read may be a whole sub-tile grid's (``core/tile_grid.py``): its
+flag is the OR over the blocks, so every retry re-reads every block at the
+same scale, and a predicated retry's ``go`` reaches every block's launch.
+
 Update management (UM) returns the pulse gains ``(C_x, C_d)`` as 0-d
 float32 tensors on the data's device, so the update cycle never reads a
 device maximum back to the host.

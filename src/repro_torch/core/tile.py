@@ -13,9 +13,11 @@ run as one kernel launch (:func:`tile_backward_update`).
 
 ``cfg.use_pallas`` routes the reads through the CUDA kernels
 (``repro_torch.kernels``); otherwise the plain-PyTorch reference below runs
-(it is also the kernels' oracle).  The sharded tile grid
-(``cfg.tile_grid``) and the streaming chunks (``update_chunk``,
-``conv_stream_chunk``) are not part of this package yet.
+(it is also the kernels' oracle).  A tile with a sub-tile grid
+(``cfg.tile_grid`` other than (1, 1)) runs its cycles through
+``core/tile_grid.py``, one raw read per block, never the managed-read
+kernel.  The streaming chunks (``update_chunk``, ``conv_stream_chunk``)
+are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -37,11 +39,16 @@ def _num_splits(contraction_dim: int, limit: int) -> int:
 
 
 def check_supported(cfg: RPUConfig) -> None:
-    """Raise for the subsystems this package does not have yet."""
-    if cfg.tile_grid is not None and tuple(cfg.tile_grid) != (1, 1):
-        raise NotImplementedError("tile grids are not ported yet")
+    """Raise for the subsystem this package does not have yet."""
     if cfg.update_chunk is not None or cfg.conv_stream_chunk is not None:
         raise NotImplementedError("streaming chunks are not ported yet")
+
+
+def _grid_routed(cfg: RPUConfig) -> bool:
+    """True when the tile's cycles run on its sub-tile grid
+    (``core/tile_grid.py``); the trivial (1, 1) grid stays on the plain
+    single-tile path, which it equals bit for bit."""
+    return cfg.tile_grid is not None and tuple(cfg.tile_grid) != (1, 1)
 
 
 def init_tile(key: prng.Key, out_features: int, in_features: int,
@@ -155,9 +162,17 @@ def tile_forward(w: Tensor, x: Tensor, key: prng.Key, cfg: RPUConfig, *,
     With ``cfg.use_pallas`` and a fixed-latency BM mode (off or two-phase)
     the whole managed read is the ``managed_mvm`` kernel; iterative BM runs
     its retries over one ``noisy_mvm`` kernel launch per read (on a device
-    predicate under a key tape's key, ``management``).
+    predicate under a key tape's key, ``management``).  A sub-tile grid
+    routes first: one ``noisy_mvm`` launch per block read, under any BM
+    mode (``core/tile_grid.py``).
     """
     check_supported(cfg)
+    if _grid_routed(cfg):
+        from repro_torch.core import tile_grid
+        return tile_grid.grid_tile_forward(w, x, key, cfg,
+                                           return_sat=return_sat,
+                                           row_offset=row_offset,
+                                           total_rows=total_rows)
     if cfg.use_pallas and not management.bm_is_iterative(cfg):
         from repro_torch.kernels import ops as kops
         y, sat = kops.managed_mvm(w, x, key, cfg, transpose=False,
@@ -207,6 +222,12 @@ def tile_backward(w: Tensor, delta: Tensor, key: prng.Key, cfg: RPUConfig,
     check_supported(cfg)
     d = cfg.devices_per_weight
     delta = replicate_delta(delta, d, rows_phys=w.shape[0])
+    if _grid_routed(cfg):
+        from repro_torch.core import tile_grid
+        return tile_grid.grid_tile_backward(w, delta, key, cfg,
+                                            return_sat=return_sat,
+                                            row_offset=row_offset,
+                                            total_rows=total_rows)
     if cfg.use_pallas and not management.bm_is_iterative(cfg):
         from repro_torch.kernels import ops as kops
         z, sat = kops.managed_mvm(w, delta, key, cfg, transpose=True,

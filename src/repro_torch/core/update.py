@@ -18,7 +18,8 @@ row ``r``, slot ``s`` and driver ``j`` draws ``uniform24(mix(e ^ mix(seed)))``
 at ``e = ((row_offset + r) * BL + s) * n + j`` (u32), the JAX package's
 layout.  Under ``cfg.use_pallas`` the counts go through the pulse-count
 kernel (``kernels/pulse_update.py``); the fused backward+update kernel
-regenerates the same streams on the card.
+regenerates the same streams on the card.  A tile with a sub-tile grid
+(``cfg.tile_grid``) updates through ``core/tile_grid.py``.
 """
 
 from __future__ import annotations
@@ -84,11 +85,21 @@ def counts_to_dw(count_up: Tensor, count_dn: Tensor, dw_up: Tensor,
     plus cycle-to-cycle variation ``ctoc sqrt(up dw_up^2 + dn dw_dn^2) xi``
     with ``xi`` the counter-hash normal of the u32 ``seed`` at the flat
     index ``row * N + col`` — the fused update kernel's finalize."""
+    xi = None
+    if ctoc > 0.0:
+        n = count_up.numel()
+        e = torch.arange(n, dtype=torch.int64,
+                         device=count_up.device).reshape(count_up.shape)
+        xi = fastrng.normal_at(fastrng.mix_seed(seed), e, n)
+    return maps_dw(count_up, count_dn, dw_up, dw_dn, ctoc, xi)
+
+
+def maps_dw(count_up: Tensor, count_dn: Tensor, dw_up: Tensor,
+            dw_dn: Tensor, ctoc: float, xi: Optional[Tensor]) -> Tensor:
+    """``count_up dw_up - count_dn dw_dn``, plus ``ctoc sqrt(up dw_up^2 +
+    dn dw_dn^2) xi`` for the standard normals ``xi`` when ``ctoc > 0``."""
     dw = count_up * dw_up - count_dn * dw_dn
     if ctoc > 0.0:
-        e = torch.arange(dw.numel(), dtype=torch.int64,
-                         device=dw.device).reshape(dw.shape)
-        xi = fastrng.normal_at(fastrng.mix_seed(seed), e, dw.numel())
         var = count_up * dw_up ** 2 + count_dn * dw_dn ** 2
         dw = dw + ctoc * torch.sqrt(var) * xi
     return dw
@@ -136,10 +147,14 @@ def pulse_update(w: Tensor, maps: DeviceMaps, x: Tensor, delta: Tensor,
     """Full update cycle on the physical weights.  ``delta`` is the logical
     error ``(..., out_f)``; it is replicated to the #_d physical row blocks
     here (independent streams per physical row driver)."""
-    from repro_torch.core.tile import check_supported, replicate_delta
+    from repro_torch.core.tile import (_grid_routed, check_supported,
+                                       replicate_delta)
     check_supported(cfg)
     delta = replicate_delta(delta, cfg.devices_per_weight,
                             rows_phys=w.shape[0])
+    if _grid_routed(cfg):
+        from repro_torch.core import tile_grid
+        return tile_grid.grid_pulse_update(w, maps, x, delta, key, cfg, lr)
     if x.dim() == 1:
         x, delta = x[None], delta[None]
     k_a, k_b, k_c = prng.split(key, 3)
@@ -155,9 +170,14 @@ def pulse_update_streamed(w: Tensor, maps: DeviceMaps, cols: Tensor,
     rows ``(P, rows_phys)`` — the conv entry, in one chunk.  ``um_maxima``
     are the precomputed ``(max|x|, max|d|)`` (the window max of the
     activation volume), required under update management."""
+    from repro_torch.core.tile import _grid_routed
     if um_maxima is None and cfg.update_management:
         raise ValueError("update management over conv columns needs the "
                          "precomputed (x_max, d_max) extrema")
+    if _grid_routed(cfg):
+        from repro_torch.core import tile_grid
+        return tile_grid.grid_pulse_update_streamed(
+            w, maps, cols, delta_phys, key, cfg, lr, um_maxima=um_maxima)
     k_a, k_b, k_c = prng.split(key, 3)
     x_max, d_max = um_maxima if um_maxima is not None else (None, None)
     cx, cd = management.um_factors_from_max(x_max, d_max, cfg, lr,

@@ -51,3 +51,8 @@ def test_covers_every_package_of_the_port():
     assert {"benchmarks", "core", "kernels", "train", "models"} <= pkgs
     names = {p.name for p in FILES if p.parent.name == "benchmarks"}
     assert {"cnn_suite.py", "bands.py", "table2_alexnet.py"} <= names
+
+
+def test_walks_the_tile_grid():
+    """The crossbar tile grid module (core/tile_grid.py) is walked."""
+    assert ROOT / "src" / "repro_torch" / "core" / "tile_grid.py" in FILES
