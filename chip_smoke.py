@@ -77,6 +77,21 @@ Phases, each of which makes the script exit non-zero when it fails:
       no copy or memset beside #4's own), both engines' steps/s, a
       replayed step's profile, retries counted in both engines; then one
       GRID_2P step on the card against the CPU (as r2);
+  (g4) the streaming chunks (``conv_stream_chunk=384:update_chunk=3``:
+      K1's 4608 positions in 12 chunks, K2's 512 in 2, W3's and W4's 8
+      update rows in 3): #1, #2 and #4 on chunks of a read or an update
+      bitwise the whole one; under SEPARATE, BL-10 two-phase BM and
+      GRID_2P, 20 graphed chunked steps bitwise 20 graphed materialized
+      ones and the chunked loop's, the chunked capture's launches per kind
+      (#4 20 a step; #2 18 for SEPARATE, #1 256 for GRID_2P) and nodes (no
+      memset or copy beyond the materialized step's), steps/s of both;
+      FUSED with chunks bitwise FUSED at 8 analog launches; ITERATIVE and
+      GRID_IT with chunks graphed bitwise the loop, retries counted in
+      both; noise-free iterative chunked bitwise materialized; one chunked
+      SEPARATE step card vs CPU; the peak allocated memory of one loop
+      step and of one capture plus replay at batch 1024 under BL-10
+      two-phase BM, materialized against chunks of 4096 and 256 (the
+      chunked peak must be lower);
   (p1) the paper's figure pair 1 through ``repro_torch.benchmarks.
       cnn_suite`` at its band protocol (6 epochs of 2048 images), seed 0:
       fig3a_baseline (no management) and fig3b_nm_bm (NM and the paper's
@@ -1121,7 +1136,8 @@ def _lenet_reads(seed):
         g = torch.Generator(device=DEV).manual_seed(seed)
         seed += 1
         out += [(f"{name} fwd B={geom.positions}", w,
-                 cm.gather_columns(x, geom).contiguous(), False),
+                 cm.gather_columns(x, geom, 0, geom.positions).contiguous(),
+                 False),
                 (f"{name} transpose B={geom.positions}", w,
                  _scaled_rows(g, geom.positions, n_out), True)]
     for name, n_in, n_out in DENSE_LAYERS:
@@ -1193,7 +1209,7 @@ def training_kernels_vs_plain(results):
         for d in ((1, 13) if name == "K2" else (1,)):
             geom, w, x = _conv_case(name, vol, k, out, d, seed)
             seed += 1
-            cols = cm.gather_columns(x, geom)
+            cols = cm.gather_columns(x, geom, 0, geom.positions)
             mag = float((cols.abs() @ w.abs().T).max())
             for nm, tp in ((False, True), (True, True), (False, False),
                            (True, False)):
@@ -1678,6 +1694,279 @@ def engine_retries(policy, results, label="engine_retries"):
     check(loop1 == scan1 > 0,
           f"iterative: {scan1} retries in the graph's epoch, {loop1} in the "
           "loop's (they must be equal and not zero)")
+    return run
+
+
+# ---------------------------------------------------------------------------
+# (g4) streaming chunks: chunked steps against the materialized ones
+# ---------------------------------------------------------------------------
+
+# at batch 8: K1's 4608 positions in 12 chunks of 384, K2's 512 in 2 (the
+# last 128), the 8 update rows of W3 and W4 in chunks of 3 (3, 3, 2)
+STREAM = ":conv_stream_chunk=384:update_chunk=3"
+BL10_2P = "nm_bm:use_pallas=true:bm_mode=two_phase"
+ITERATIVE_NF = ITERATIVE_A1 + ":read_noise=0"
+STREAM_POLICIES = (("separate", SEPARATE), ("bl10_2p", BL10_2P),
+                   ("grid_2p", GRID_2P))
+# launches per chunked step: the conv reads take every column in one
+# launch; a transpose pass reads K1 in 12 chunks, K2 in 2; an update is
+# one #4 launch per chunk (K1 12, K2 2, W3 3, W4 3)
+_SEP_STREAM = {"managed_read": 2 + 12 + 2 + 2, "managed_read_conv": 2,
+               "pulse_counts": 20}
+STREAM_PER_STEP = {
+    "separate": _SEP_STREAM, "bl10_2p": _SEP_STREAM,
+    # 32 managed reads (K1 12 + 12, K2 2 + 2, W3 2, W4 2) x 2 two-phase
+    # reads x 4 blocks
+    "grid_2p": {"noisy_read": 256, "pulse_counts": 20},
+    # the fused kernels take every column whatever the chunk
+    "fused": PER_STEP["fused"],
+    # 32 reads x 11 predicated raw reads (x 4 blocks on the grid)
+    "iterative": {"noisy_read": 352, "pulse_counts": 20},
+    "grid_it": {"noisy_read": 1408, "pulse_counts": 20},
+}
+# analog kernel nodes of a captured chunked step: a tiled managed read is
+# two kernels, the gemv one (W3's and W4's forward at B = 8)
+STREAM_GRAPH_ANALOG = {"separate": 56, "bl10_2p": 56, "grid_2p": 276,
+                       "fused": 8}
+# the memory check: batch 1024, materialized against these chunks
+MEM_BATCH, MEM_STREAM = 1024, ":conv_stream_chunk=4096:update_chunk=256"
+
+
+def _graphed_epochs(policy, epochs=2):
+    """``epochs`` epochs of ``LENET_STEPS`` graphed steps from g2's tiles,
+    keys and batches: the tiles after the first epoch, the launches of
+    that epoch (warm-up step and replays), its program and the steps/s of
+    the last epoch (None for one epoch)."""
+    import torch
+    from repro_torch.analog import presets
+    from repro_torch.kernels import ops
+    from repro_torch.models import lenet
+    from repro_torch.train import engine
+    from repro_torch.utils import prng
+    cfg = lenet.LeNetConfig.from_policy(presets.parse_policy(policy))
+    xs, ys = _lenet_images(LENET_STEPS * LENET_BATCH, seed=1)
+    p = lenet.init(prng.key(0), cfg, device=DEV)
+    run = engine.make_cnn_epoch_fn(cfg, batch=LENET_BATCH)
+    with _PlainCalls() as plain:
+        ops.reset_launch_counts()
+        run(p, xs, ys, prng.key(3), prng.key(2), 0)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+    check(plain.calls == 0, f"{plain.calls} plain-version calls on the card")
+    tiles = {n: p[n].w.detach().clone() for n in lenet.LAYERS}
+    rate = None
+    for epoch in range(1, epochs):
+        dt = _timed(lambda: run(p, xs, ys, prng.key(3), prng.key(2), epoch))
+        rate = LENET_STEPS / dt
+    return tiles, counts, run.program, rate
+
+
+def _loop_epoch(policy):
+    """One epoch of the per-step loop (``engine="python"``) from the same
+    tiles, keys and batches as :func:`_graphed_epochs`: the tiles."""
+    from repro_torch.analog import presets
+    from repro_torch.models import lenet
+    from repro_torch.train import cnn
+    from repro_torch.utils import prng
+    cfg = lenet.LeNetConfig.from_policy(presets.parse_policy(policy))
+    xs, ys = _lenet_images(LENET_STEPS * LENET_BATCH, seed=1)
+    p = lenet.init(prng.key(0), cfg, device=DEV)
+    with _PlainCalls() as plain:
+        cnn.python_epoch(cnn.make_train_step(cfg), p, xs, ys, prng.key(3),
+                         prng.key(2), 0, LENET_BATCH)
+    check(plain.calls == 0, f"{plain.calls} plain-version calls on the card")
+    return {n: p[n].w for n in lenet.LAYERS}
+
+
+def _equal(a, b):
+    import torch
+    return {n: torch.equal(a[n], b[n]) for n in a}
+
+
+def stream_chunk_reads(results):
+    """#1, #2 and #4 on chunks of a read or an update against the whole
+    one on the card, bitwise: the raw read of K1's columns (4608 rows) and
+    the managed transpose read of K2's errors (512 rows, two-phase BM) in
+    chunks of 384 and a last short chunk (below the gemv's 8 rows among
+    them), each with its rows' offset and the whole read's row count; the
+    counts of K1's streams (BL 10) chunk by chunk into one pair of
+    outputs."""
+    import torch
+    from repro_torch.kernels import managed_mvm, noisy_mvm, ops
+    from repro_torch.kernels import pulse_update as pk
+    g = torch.Generator(device=DEV).manual_seed(41)
+    rows = []
+
+    def chunks(total):
+        return [(0, 384), (384, 7), (total - 5, 5)]
+
+    w1 = (torch.randn(16, 26, generator=g, device=DEV) * 0.3).contiguous()
+    x1 = torch.randn(4608, 26, generator=g, device=DEV)
+    kw1 = dict(sigma=0.06, alpha=3.0, n_seg=1)
+    y, s = noisy_mvm.noisy_mvm(w1, x1, 5, **kw1)
+    ok1 = all(
+        torch.equal(yc, y[a:a + n]) and torch.equal(sc, s[a:a + n])
+        for a, n in chunks(4608)
+        for yc, sc in [noisy_mvm.noisy_mvm(w1, x1[a:a + n].contiguous(), 5,
+                                           row_offset=a, total_rows=4608,
+                                           **kw1)])
+    w2 = (torch.randn(32, 401, generator=g, device=DEV) * 0.3).contiguous()
+    d2 = torch.randn(512, 32, generator=g, device=DEV)
+    nm = d2.abs().amax(dim=1, keepdim=True)
+    kw2 = dict(sigma=0.06, alpha=0.05, transpose=True, two_phase=True)
+    z, r = managed_mvm.managed_mvm(w2, d2, nm, (6, 7), **kw2)
+    ok2 = all(
+        torch.equal(zc, z[a:a + n]) and torch.equal(rc, r[a:a + n])
+        for a, n in chunks(512)
+        for zc, rc in [managed_mvm.managed_mvm(
+            w2, d2[a:a + n].contiguous(), nm[a:a + n].contiguous(), (6, 7),
+            row_offset=a, total_rows=512, **kw2)])
+    sa = (torch.rand(46080, 26, generator=g, device=DEV) < 0.3).float()
+    sb = torch.sign(torch.randn(46080, 16, generator=g, device=DEV)) * (
+        torch.rand(46080, 16, generator=g, device=DEV) < 0.3).float()
+    up, dn = ops.pulse_counts(sb, sa)
+    acc = None
+    for a in range(0, 46080, 3840):
+        acc = pk.pulse_counts(sb[a:a + 3840], sa[a:a + 3840], acc)
+    ok4 = torch.equal(acc[0], up) and torch.equal(acc[1], dn)
+    torch.cuda.synchronize()
+    sat = int(s.sum()), int(r.sum())
+    print(f"[stream_reads] chunks of a read vs the whole read, bitwise: #1 "
+          f"K1 4608x26->16 {ok1}, #2 K2 transpose 512 rows two-phase {ok2} "
+          f"(saturated rows {sat}); #4 K1 BL 10 counts in 12 accumulated "
+          f"launches vs one {ok4}")
+    results["stream_reads"] = dict(noisy_read=ok1, managed_read=ok2,
+                                   pulse_counts=ok4, saturated=sat)
+    check(ok1 and ok2 and ok4, "a chunk of a read or an update differs from "
+          "the whole one on the card")
+    check(min(sat) > 0, "the chunked reads saturate nowhere")
+    for kernel, case, err in (("noisy_mvm", "K1 chunk rows vs whole", ok1),
+                              ("managed_mvm", "K2ᵀ chunk rows vs whole", ok2),
+                              ("pulse_counts", "K1 accumulated chunks", ok4)):
+        results.setdefault("checks", []).append(dict(
+            kernel=kernel, case=case, max_abs_err=0.0 if err else 1.0,
+            tol=0.0))
+
+
+def stream_engines(results):
+    """(g4) the streaming chunks (``STREAM``) on the full-width LeNet: for
+    SEPARATE, BL-10 two-phase BM and GRID_2P, 20 graphed chunked steps
+    bitwise 20 graphed materialized ones and 20 chunked loop steps, the
+    captured chunked step's launches and nodes (no memset or copy beyond
+    the materialized step's), both engines' steps/s; FUSED with chunks
+    bitwise FUSED at its 8 analog launches; ITERATIVE and GRID_IT with
+    chunks graphed bitwise the loop with retries counted (g2's
+    ``engine_retries``), noise-free iterative chunked bitwise materialized;
+    one chunked SEPARATE step on the card against the CPU; the peak memory
+    of a materialized and a chunked step at batch 1024."""
+    stream_chunk_reads(results)
+    graphs = ROOT / "build" / "graphs"
+    for name, policy in STREAM_POLICIES + (("fused", FUSED),):
+        label = f"stream_{name}"
+        mat, mat_counts, mat_prog, mat_rate = _graphed_epochs(policy)
+        got, counts, prog, rate = _graphed_epochs(policy + STREAM)
+        same = _equal(got, mat)
+        loop = None if name == "fused" else _equal(got, _loop_epoch(
+            policy + STREAM))
+        want = dict(STREAM_PER_STEP[name], key_schedule=1)
+        census = _graph_census(prog.graph, graphs / f"{label}.dot")
+        base = _graph_census(mat_prog.graph, graphs / f"{label}_mat.dot")
+        print(f"[{label}] {policy}{STREAM}: {LENET_STEPS} graphed chunked "
+              f"steps vs {LENET_STEPS} graphed materialized, bitwise "
+              f"{same}; vs {LENET_STEPS} chunked loop steps {loop}; per "
+              f"replay {prog.captured} (materialized {mat_prog.captured}); "
+              f"nodes {census} (materialized {base}); scan steps/s chunked "
+              f"{rate:.1f}, materialized {mat_rate:.1f}")
+        results[label] = dict(policy=policy + STREAM, equal=same, loop=loop,
+                              per_replay=prog.captured, launches=counts,
+                              graph_nodes=census, graph_nodes_mat=base,
+                              steps_per_s=rate, steps_per_s_mat=mat_rate)
+        check(all(same.values()), f"{name}: chunked steps differ from the "
+              "materialized steps")
+        check(loop is None or all(loop.values()),
+              f"{name}: graphed chunked steps differ from the loop's")
+        check(prog.captured == want, f"{name}: the chunked capture recorded "
+              f"{prog.captured}, expected {want}")
+        check(census["analog"] == STREAM_GRAPH_ANALOG[name]
+              and census["raw_read"] == want.get("noisy_read", 0)
+              and census["pulse_counts"] == want.get("pulse_counts", 0),
+              f"{name}: the chunked step's nodes {census}")
+        check(census["memset"] <= base["memset"]
+              and census["memcpy"] <= base["memcpy"],
+              f"{name}: the chunked step holds more memsets or copies "
+              f"({census}) than the materialized one ({base})")
+    # iterative BM: retries chunk-local, graphed = loop, counted
+    for name, policy in (("iterative", ITERATIVE_A1),
+                         ("grid_it", GRID_IT_A05)):
+        run = engine_retries(policy + STREAM, results,
+                             label=f"stream_retries_{name}")
+        want = dict(STREAM_PER_STEP[name], key_schedule=1)
+        captured = run.program.captured
+        print(f"[stream_{name}] per replay {captured}")
+        results[f"stream_retries_{name}"]["per_replay"] = captured
+        check(captured == want, f"{name}: the chunked capture recorded "
+              f"{captured}, expected {want}")
+    nf, _, _, _ = _graphed_epochs(ITERATIVE_NF, epochs=1)
+    nf_c, nf_counts, _, _ = _graphed_epochs(ITERATIVE_NF + STREAM, epochs=1)
+    same = _equal(nf_c, nf)
+    results["stream_iterative"] = dict(policy=ITERATIVE_NF + STREAM,
+                                       launches=nf_counts, equal=same)
+    print(f"[stream_noise_free] {ITERATIVE_NF}: graphed chunked vs "
+          f"materialized, bitwise {same}; launches {nf_counts}")
+    check(all(same.values()), "noise-free iterative chunked steps differ "
+          "from the materialized ones")
+    step_vs_cpu("SEPARATE chunked", SEPARATE + STREAM,
+                "stream_step_reference", results)
+    stream_memory(results)
+
+
+def stream_memory(results):
+    """Peak allocated device memory of one loop step and of one capture
+    plus replay (``make_cnn_epoch_fn`` over one batch) at batch 1024 under
+    BL-10 two-phase BM, materialized against ``MEM_STREAM``."""
+    import gc
+    import torch
+    from repro_torch.analog import presets
+    from repro_torch.models import lenet
+    from repro_torch.train import cnn, engine
+    from repro_torch.utils import prng
+    xs, ys = _lenet_images(MEM_BATCH, seed=7)
+    peaks = {}
+    for label, policy in (("materialized", BL10_2P),
+                          ("chunked", BL10_2P + MEM_STREAM)):
+        cfg = lenet.LeNetConfig.from_policy(presets.parse_policy(policy))
+        row = {}
+        for what in ("loop", "graph"):
+            p = lenet.init(prng.key(0), cfg, device=DEV)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if what == "loop":
+                cnn.make_train_step(cfg)(p, xs, ys, prng.key(1))
+            else:
+                run = engine.make_cnn_epoch_fn(cfg, batch=MEM_BATCH)
+                run(p, xs, ys, prng.key(3), prng.key(2), 0)
+            torch.cuda.synchronize()
+            row[what] = dict(peak=torch.cuda.max_memory_allocated(),
+                             above_start=torch.cuda.max_memory_allocated()
+                             - base, seconds=time.perf_counter() - t0)
+            del p
+            run = None
+        peaks[label] = row
+        print(f"[stream_memory] {policy}, batch {MEM_BATCH}: one loop step "
+              f"peak {row['loop']['peak'] / 2**20:.1f} MiB "
+              f"({row['loop']['above_start'] / 2**20:.1f} above its start), "
+              f"capture + replay peak {row['graph']['peak'] / 2**20:.1f} MiB "
+              f"({row['graph']['above_start'] / 2**20:.1f} above)")
+    results["stream_memory"] = dict(batch=MEM_BATCH, peaks=peaks)
+    for what in ("loop", "graph"):
+        check(peaks["chunked"][what]["peak"]
+              < peaks["materialized"][what]["peak"],
+              f"chunked {what} peak {peaks['chunked'][what]['peak']} not "
+              f"below the materialized {peaks['materialized'][what]['peak']}")
 
 
 def key_schedule_time(results, tape, prog):
@@ -2291,7 +2580,7 @@ def training_kernel_times(results):
                 2.0 * p * geom.cols * m, 0.0)
             dr = torch.randn(p, m, device=DEV)
             bkw = dict(sigma=SIGMA, alpha=ALPHA, two_phase=True, bl=1)
-            cols = cm.gather_columns(x, geom)
+            cols = cm.gather_columns(x, geom, 0, geom.positions)
             sa = (torch.rand_like(cols) < 0.5).float()
             sb = (torch.rand_like(dr) < 0.5).float()
             _time_row(
@@ -2421,6 +2710,12 @@ def summary_line(results):
             kernels[-1]["launches_grid"] = {
                 name: results[f"engine_{name}"]["launches"][meta["kind"]]
                 for name in GRID_STEPS}
+        if meta["kind"] in ("noisy_read", "managed_read", "pulse_counts"):
+            # and in g4's chunked 20-step epochs (warm-up step included)
+            kernels[-1]["launches_stream"] = {
+                name: results[f"stream_{name}"]["launches"][meta["kind"]]
+                for name in ("separate", "bl10_2p", "grid_2p", "iterative")
+                if results[f"stream_{name}"]["launches"].get(meta["kind"])}
     return {"kernels": kernels}
 
 
@@ -2465,6 +2760,8 @@ PHASES = [
     ("g2", "the epoch engine: graphed steps vs the loop", lenet_engines),
     ("g3", "LeNet on a 2x2 grid of sub-tiles: graphed steps vs the loop",
      lenet_grid_engines),
+    ("g4", "streaming chunks: chunked steps vs materialized, graphed",
+     stream_engines),
     ("p1", "figure pair 1 in its JAX seed band", figure_pair),
     ("h", "learning", lenet_learning),
     ("r2", "one training step, card vs CPU", step_reference),

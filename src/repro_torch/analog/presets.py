@@ -42,10 +42,6 @@ _PRESETS: Dict[str, Callable[[], Optional[RPUConfig]]] = {
                            .without_out_bound().without_variations()),
 }
 
-# modifiers whose subsystem (the streaming chunks) is not ported
-_UNPORTED = ("update_chunk", "conv_stream_chunk")
-
-
 def preset_names() -> List[str]:
     return sorted(_PRESETS)
 
@@ -97,11 +93,12 @@ def resolve_spec(spec: str) -> Optional[RPUConfig]:
                              "(expected field=value)")
         k, v = kv.split("=", 1)
         k = k.strip()
-        if k in _UNPORTED:
-            raise NotImplementedError(f"modifier {k!r} is not ported yet")
         val = _coerce(k, v)
-        if k == "tile_grid":
+        # validated constructors where they exist
+        if k == "tile_grid" and val is not None:
             cfg = cfg.with_tile_grid(*val)
+        elif k in ("update_chunk", "conv_stream_chunk") and val is not None:
+            cfg = cfg.with_streaming(**{k: val})
         else:
             cfg = dataclasses.replace(cfg, **{k: val})
     return cfg
@@ -157,6 +154,8 @@ def describe_cfg(cfg: Optional[RPUConfig]) -> str:
         bits.append("no-dtod")
     if cfg.tile_grid and tuple(cfg.tile_grid) != (1, 1):
         bits.append(f"grid={cfg.tile_grid[0]}x{cfg.tile_grid[1]}")
+    if cfg.update_chunk:
+        bits.append(f"chunk={cfg.update_chunk}")
     if cfg.use_pallas:
         bits.append("cuda")
     if cfg.seeded_maps:

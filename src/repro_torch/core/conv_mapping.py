@@ -1,22 +1,43 @@
-"""Conv -> crossbar mapping: a conv layer with kernels ``(M, kh, kw, C)`` is
-the parameter matrix ``K (M, C*kh*kw [+1 bias])`` read against the im2col
-columns of its input, one column per output position:
+"""Conv -> crossbar mapping, streamed: a conv layer with kernels ``(M, kh,
+kw, C)`` is the parameter matrix ``K (M, C*kh*kw [+1 bias])`` read against
+the im2col columns of its input, one column per output position:
 
     forward   Y = K X             (one managed read per position column)
     backward  Z = K^T D           (then the digital col2im scatter-add)
     update    K <- K + eta D X^T  (pulse updates over every column)
 
 Feature order is channel-major (``c * kh*kw + ih * kw + iw``), bias last.
-The whole batch x positions axis is one chunk (the JAX package's
-``conv_stream_chunk=None``); the streaming chunks are not ported yet.
-Under ``cfg.use_pallas`` the forward read is the implicit-im2col kernel
-(``kernels/conv_mvm.py``) and, with ``cfg.fuse_bwd_update``, the backward
-read and the update are one kernel launch (``kernels/bwd_update_mvm.py``);
-otherwise the columns are gathered here and go through the dense tile
-cycles.  A tile with a sub-tile grid (``cfg.tile_grid``) is never eligible
-for either kernel: its columns take the dense cycles, which run on the grid
-(``core/tile_grid.py``).  ``col2im_add`` applies the taps in descending
-order, the JAX package's per-pixel accumulation order.
+The analog cycles walk the batch x positions axis in chunks of
+``cfg.conv_stream_chunk`` columns (None: one chunk, the materialized
+path), so only one chunk of columns and of their ``~BL x`` larger pulse
+streams is live at a time:
+
+* forward: each chunk is gathered from the activation volume
+  (:func:`gather_columns`) and read through ``tile.tile_forward`` at its
+  rows' offset in the whole read, so its noise and NM/BM scales are the
+  whole read's.  Under ``cfg.use_pallas`` with a fixed-latency BM mode the
+  implicit-im2col kernel (``kernels/conv_mvm.py``) reads every column in
+  one launch, whatever the chunk.
+* backward: each chunk's transpose read scatter-adds into the volume
+  cotangent (:func:`col2im_add`) taps in descending order: a pixel's
+  contributing positions fall as the tap rises, so ascending chunks of
+  descending taps add every pixel's terms in one order whatever the chunk
+  size, and chunked and materialized backward cycles agree bit for bit.
+* update: each chunk's coincidence counts add exactly to the others'
+  (``update.pulse_update_streamed``); maps, ctoc noise and the clip apply
+  once at the end.
+
+So for BM off and two-phase BM a chunked step gives the materialized
+step's bits.  Under iterative BM each chunk's halve-and-retry loop decides
+its retries from its own rows: per-vector scales are the same, results
+the same in distribution and bit-exact without read noise.  With
+``cfg.fuse_bwd_update`` the backward read and the update are one kernel
+launch (``kernels/bwd_update_mvm.py``) over every column, whatever the
+chunk, so a fused step with chunks is the fused step.  A tile with a
+sub-tile grid (``cfg.tile_grid``) is never eligible for either kernel: its
+chunks take the dense cycles, which run on the grid
+(``core/tile_grid.py``).  The chunk loops run on the host: a captured step
+records one launch per chunk.
 
 Layouts follow the JAX package: activations are NHWC.
 """
@@ -137,13 +158,46 @@ def _patches(xpad: Tensor, geom: ConvGeom) -> Tensor:
     return p.reshape(geom.b, geom.oh, geom.ow, geom.features)
 
 
-def gather_columns(xpad: Tensor, geom: ConvGeom) -> Tensor:
-    """The im2col column matrix ``(positions, cols)`` of the padded volume,
-    bias ones appended."""
-    cols = _patches(xpad, geom).reshape(geom.positions, geom.features)
+def _position_indices(geom: ConvGeom, start: int, chunk: int,
+                      device) -> Tensor:
+    """Flat index, in the padded volume viewed as ``(B*H*W, C)``, of the
+    first tap's pixel of each position ``[start, start + chunk)``."""
+    p = torch.arange(start, start + chunk, dtype=torch.int64, device=device)
+    per_img = geom.oh * geom.ow
+    b = p // per_img
+    r = p - b * per_img
+    return (b * geom.h + (r // geom.ow) * geom.sh) * geom.w + \
+        (r % geom.ow) * geom.sw
+
+
+def _check_chunk(geom: ConvGeom, start: int, chunk: int) -> None:
+    if start < 0 or chunk < 1 or start + chunk > geom.positions:
+        raise ValueError(f"positions [{start}, {start + chunk}) outside "
+                         f"[0, {geom.positions})")
+
+
+def gather_columns(xpad: Tensor, geom: ConvGeom, start: int,
+                   chunk: int) -> Tensor:
+    """One chunk of the im2col column matrix, ``(chunk, cols)``: positions
+    ``[start, start + chunk)`` of the padded volume, bias ones appended.
+    The whole matrix comes from the tap slices; a chunk of it from one
+    gather of its rows' pixels (the same values)."""
+    _check_chunk(geom, start, chunk)
+    if chunk == geom.positions:
+        cols = _patches(xpad, geom).reshape(chunk, geom.features)
+    else:
+        kk = geom.kh * geom.kw
+        ih = torch.arange(geom.kh, dtype=torch.int64, device=xpad.device)
+        iw = torch.arange(geom.kw, dtype=torch.int64, device=xpad.device)
+        taps = (ih[:, None] * (geom.dh * geom.w)
+                + iw[None, :] * geom.dw).reshape(kk)
+        idx = _position_indices(geom, start, chunk, xpad.device)
+        g = xpad.reshape(-1, geom.c).index_select(
+            0, (idx[:, None] + taps[None, :]).reshape(-1))
+        cols = g.reshape(chunk, kk, geom.c).transpose(1, 2).reshape(
+            chunk, geom.features)
     if geom.bias:
-        ones = torch.ones(geom.positions, 1, dtype=cols.dtype,
-                          device=cols.device)
+        ones = torch.ones(chunk, 1, dtype=cols.dtype, device=cols.device)
         cols = torch.cat([cols, ones], dim=1)
     return cols
 
@@ -166,14 +220,30 @@ def window_absmax(xpad: Tensor, geom: ConvGeom) -> Tensor:
     return m
 
 
-def col2im_add(z: Tensor, geom: ConvGeom, xbar: Tensor) -> Tensor:
-    """Scatter-add transpose-read columns ``(positions, features)`` into the
-    padded volume cotangent ``xbar`` (in place), taps in DESCENDING order —
-    the JAX package's per-pixel accumulation order."""
-    z5 = z.reshape(geom.b, geom.oh, geom.ow, geom.c, geom.kh * geom.kw)
-    for t in reversed(range(geom.kh * geom.kw)):
+def col2im_add(z: Tensor, geom: ConvGeom, start: int, chunk: int,
+               xbar: Tensor) -> Tensor:
+    """Scatter-add one chunk's transpose-read columns ``(chunk, features)``
+    (positions ``[start, start + chunk)``) into the padded volume
+    cotangent ``xbar`` (in place), taps in DESCENDING order: a pixel's
+    contributing positions fall as the tap rises, so chunks in ascending
+    order add every pixel's terms in one order whatever the chunk size
+    (the JAX package's per-pixel accumulation order).  Within one tap no
+    two positions meet at a pixel."""
+    _check_chunk(geom, start, chunk)
+    kk = geom.kh * geom.kw
+    if chunk == geom.positions:
+        z5 = z.reshape(geom.b, geom.oh, geom.ow, geom.c, kk)
+        for t in reversed(range(kk)):
+            ih, iw = divmod(t, geom.kw)
+            geom.tap_slice(xbar, ih, iw).add_(z5[..., t])
+        return xbar
+    z3 = z.reshape(chunk, geom.c, kk)
+    idx = _position_indices(geom, start, chunk, z.device)
+    flat = xbar.view(-1, geom.c)
+    for t in reversed(range(kk)):
         ih, iw = divmod(t, geom.kw)
-        geom.tap_slice(xbar, ih, iw).add_(z5[..., t])
+        flat.index_add_(0, idx + (ih * geom.dh * geom.w + iw * geom.dw),
+                        z3[:, :, t])
     return xbar
 
 
@@ -197,48 +267,75 @@ def _um_maxima(cfg: RPUConfig, xpad: Tensor, geom: ConvGeom, g2: Tensor):
     return x_max, torch.amax(torch.abs(g2))
 
 
+def _chunking(cfg: RPUConfig, geom: ConvGeom) -> int:
+    """Positions per chunk under ``cfg.conv_stream_chunk`` (None: one
+    chunk of every position)."""
+    total = geom.positions
+    return max(1, min(cfg.conv_stream_chunk or total, total))
+
+
+def _chunks(cfg: RPUConfig, geom: ConvGeom):
+    return update_lib.chunk_starts(geom.positions, _chunking(cfg, geom))
+
+
 def _stream_forward(cfg: RPUConfig, geom: ConvGeom, w: Tensor, x: Tensor,
                     k_f: prng.Key) -> Tensor:
-    """Forward cycle: managed reads of every position column."""
+    """Forward cycle: managed reads of every position column, in chunks
+    (the conv read kernel takes every column in one launch)."""
     from repro_torch.kernels import conv_mvm
     xpad = _pad_volume(x, geom)
+    total = geom.positions
     if conv_mvm.conv_kernel_eligible(cfg, geom, w.shape):
         from repro_torch.kernels import ops as kops
         use_nm = cfg.noise_management and cfg.nm_forward
         nm_s = (_conv_nm_scale(xpad, geom) if use_nm
-                else torch.ones(geom.positions, 1, dtype=x.dtype,
-                                device=x.device))
+                else torch.ones(total, 1, dtype=x.dtype, device=x.device))
         y2, _ = kops.conv_managed_mvm(w, xpad, geom, nm_s, k_f, cfg)
     else:
-        y2 = tile_lib.tile_forward(w, gather_columns(xpad, geom), k_f, cfg)
+        ys = [tile_lib.tile_forward(w, gather_columns(xpad, geom, start, n),
+                                    k_f, cfg, row_offset=start,
+                                    total_rows=total)
+              for start, n in _chunks(cfg, geom)]
+        y2 = ys[0] if len(ys) == 1 else torch.cat(ys)
     return y2.reshape(geom.b, geom.oh, geom.ow, -1)
 
 
-def _col2im(z: Tensor, geom: ConvGeom) -> Tensor:
-    xbar = torch.zeros(geom.b, geom.h, geom.w, geom.c, dtype=z.dtype,
-                       device=z.device)
-    return _unpad(col2im_add(z[:, :geom.features], geom, xbar), geom)
+def _new_xbar(geom: ConvGeom, like: Tensor) -> Tensor:
+    return torch.zeros(geom.b, geom.h, geom.w, geom.c, dtype=like.dtype,
+                       device=like.device)
 
 
 def _stream_backward(cfg: RPUConfig, geom: ConvGeom, w: Tensor, g: Tensor,
                      k_b: prng.Key) -> Tensor:
-    """Backward cycle: transpose reads of the position errors + col2im."""
-    out_f = w.shape[0] // cfg.devices_per_weight
-    z = tile_lib.tile_backward(w, g.reshape(geom.positions, out_f), k_b, cfg)
-    return _col2im(z, geom)
+    """Backward cycle: transpose reads of the position errors, chunk by
+    chunk, each scattered into the volume cotangent (col2im)."""
+    total = geom.positions
+    g2 = g.reshape(total, w.shape[0] // cfg.devices_per_weight)
+    xbar = _new_xbar(geom, g)
+    for start, n in _chunks(cfg, geom):
+        z = tile_lib.tile_backward(w, g2[start:start + n], k_b, cfg,
+                                   row_offset=start, total_rows=total)
+        col2im_add(z[:, :geom.features], geom, start, n, xbar)
+    return _unpad(xbar, geom)
 
 
 def _stream_pulse_w_bar(cfg: RPUConfig, geom: ConvGeom, w: Tensor,
                         maps: DeviceMaps, x: Tensor, g: Tensor,
                         k_u: prng.Key, lr: float) -> Tensor:
-    """Update cycle over the columns and the errors ``-g``:
-    ``w_bar = w - clip(w + DW_pulse(cols, -g))``."""
+    """Update cycle over the columns and the errors ``-g``, generated chunk
+    by chunk: ``w_bar = w - clip(w + DW_pulse(cols, -g))``."""
     xpad = _pad_volume(x, geom)
     d = cfg.devices_per_weight
     g2 = g.reshape(geom.positions, w.shape[0] // d)
+
+    def get_chunk(src, start, n):
+        xp, gg = src
+        return (gather_columns(xp, geom, start, n),
+                tile_lib.replicate_delta(-gg[start:start + n], d))
+
     new_w = update_lib.pulse_update_streamed(
-        w, maps, gather_columns(xpad, geom),
-        tile_lib.replicate_delta(-g2, d), k_u, cfg, lr,
+        w, maps, (xpad, g2), get_chunk, k_u, cfg, lr,
+        total=geom.positions, chunk=_chunking(cfg, geom),
         um_maxima=_um_maxima(cfg, xpad, geom, g2))
     return w - new_w
 
@@ -261,7 +358,9 @@ def _fused_bwd_update(cfg: RPUConfig, geom: ConvGeom, w: Tensor,
     if d > 1:
         z = tile_lib.div_replicas(z, d)
     new_w = update_lib.finalize_counts(w, maps, count_up, count_dn, k_c, cfg)
-    return _col2im(z, geom), w - new_w
+    xbar = col2im_add(z[:, :geom.features], geom, 0, geom.positions,
+                      _new_xbar(geom, z))
+    return _unpad(xbar, geom), w - new_w
 
 
 class _ConvCycles(torch.autograd.Function):
@@ -307,7 +406,9 @@ def apply(w: Tensor, x: Tensor, key: Optional[prng.Key], cfg: RPUConfig,
         patches = im2col(x, kernel, stride, padding, dilation)
         return analog_linear.apply(w, patches, key, cfg, lr, bias=bias,
                                    mode=mode)
-    tile_lib.check_supported(cfg)
+    if cfg.conv_stream_chunk is not None and not cfg.fast_rng:
+        raise ValueError("conv_stream_chunk requires cfg.fast_rng (chunk "
+                         "bit-parity needs counter-offset noise)")
     geom = conv_geometry(tuple(x.shape), kernel, stride, padding, dilation,
                          bias)
     if cfg.seeded_maps:

@@ -56,7 +56,7 @@ class RPUConfig:
     # --- physical array-size limit (Discussion: max 4096x4096) --------------
     max_array_rows: int = 4096
     max_array_cols: int = 4096
-    # --- sub-tile grid (core/tile_grid.py); streaming chunks (not ported) --
+    # --- sub-tile grid (core/tile_grid.py); streaming chunks ---------------
     tile_grid: Optional[Tuple[int, int]] = None
     update_chunk: Optional[int] = None
     conv_stream_chunk: Optional[int] = None
@@ -98,6 +98,34 @@ class RPUConfig:
             raise ValueError(
                 f"tile_grid must be >= (1, 1), got {(rows, cols)}")
         return dataclasses.replace(self, tile_grid=(rows, cols))
+
+    def with_streaming(self, update_chunk: Optional[int] = None,
+                       conv_stream_chunk: Optional[int] = None
+                       ) -> "RPUConfig":
+        """Chunk the update cycle's pulse streams (``update_chunk`` rows of
+        the flattened batch at a time) and/or the conv position columns
+        (``conv_stream_chunk``).  A field left None keeps its value.
+
+        Chunked training gives the materialized step's bits under the
+        fixed-latency BM modes (off, two-phase); iterative BM's retries
+        become chunk-local, the same in distribution and bit-exact without
+        read noise.  Requires ``fast_rng``: a chunk's draws are the
+        counter-offset draws of its rows."""
+        for name, v in (("update_chunk", update_chunk),
+                        ("conv_stream_chunk", conv_stream_chunk)):
+            if v is not None and v < 1:
+                raise ValueError(f"{name} must be >= 1, got {v}")
+        if (update_chunk or conv_stream_chunk) and not self.fast_rng:
+            raise ValueError(
+                "streaming chunks require fast_rng=True (threefry draws "
+                "cannot be counter-offset for chunk bit-parity)")
+        return dataclasses.replace(
+            self,
+            update_chunk=(self.update_chunk if update_chunk is None
+                          else update_chunk),
+            conv_stream_chunk=(self.conv_stream_chunk
+                               if conv_stream_chunk is None
+                               else conv_stream_chunk))
 
     def normalized_for_lm(self) -> "RPUConfig":
         """LM dense tiles simulate in float32 with seeded device maps."""

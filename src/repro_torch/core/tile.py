@@ -16,8 +16,10 @@ run as one kernel launch (:func:`tile_backward_update`).
 (it is also the kernels' oracle).  A tile with a sub-tile grid
 (``cfg.tile_grid`` other than (1, 1)) runs its cycles through
 ``core/tile_grid.py``, one raw read per block, never the managed-read
-kernel.  The streaming chunks (``update_chunk``, ``conv_stream_chunk``)
-are not part of this package yet.
+kernel.  A read of one chunk of a larger batch (the streaming conv cycles,
+``core/conv_mapping.py``) passes ``row_offset`` and ``total_rows``: its
+noise is drawn at its rows' counters in the whole read, and the kernels
+plan it as the whole read, so the chunk's rows come out bit for bit.
 """
 
 from __future__ import annotations
@@ -36,12 +38,6 @@ Tensor = torch.Tensor
 
 def _num_splits(contraction_dim: int, limit: int) -> int:
     return max(1, -(-contraction_dim // limit))
-
-
-def check_supported(cfg: RPUConfig) -> None:
-    """Raise for the subsystem this package does not have yet."""
-    if cfg.update_chunk is not None or cfg.conv_stream_chunk is not None:
-        raise NotImplementedError("streaming chunks are not ported yet")
 
 
 def _grid_routed(cfg: RPUConfig) -> bool:
@@ -166,7 +162,6 @@ def tile_forward(w: Tensor, x: Tensor, key: prng.Key, cfg: RPUConfig, *,
     routes first: one ``noisy_mvm`` launch per block read, under any BM
     mode (``core/tile_grid.py``).
     """
-    check_supported(cfg)
     if _grid_routed(cfg):
         from repro_torch.core import tile_grid
         return tile_grid.grid_tile_forward(w, x, key, cfg,
@@ -219,7 +214,6 @@ def tile_backward(w: Tensor, delta: Tensor, key: prng.Key, cfg: RPUConfig,
     replica row blocks, the column currents sum over replicas and the
     digital domain divides by #_d.  Routing mirrors :func:`tile_forward`
     (NM applies to the backward read whenever enabled)."""
-    check_supported(cfg)
     d = cfg.devices_per_weight
     delta = replicate_delta(delta, d, rows_phys=w.shape[0])
     if _grid_routed(cfg):

@@ -21,7 +21,11 @@ one-device part of the JAX package's ``core/tile_grid.py``:
   them (one launch of the pulse-count kernel under ``cfg.use_pallas``)
   holds every block's counts, since the counts are integers; then each
   block applies its maps, its ctoc noise under ``fold_in(k_c, i * C + j)``
-  at counters within the block, and its bound clip.
+  at counters within the block, and its bound clip.  With chunks
+  (``cfg.update_chunk``, or the conv cycles' generated chunks) each chunk's
+  padded streams are drawn at its rows' counters and counted, adding to
+  the chunks' before it (one launch per chunk), and the one finalize pass
+  follows the last: the bits of the unchunked grid update.
 
 Padding: the physical array pads with zero weights and zero input lines.
 Padded output rows are real integrator channels: they read pure noise,
@@ -30,8 +34,10 @@ drawn at the padded block's counters, and are sliced away after assembly.
 The JAX package places the blocks on a device mesh with ``shard_map`` when
 enough devices exist, with numerics identical to its serial form.  This
 package has no ``distributed/``: every grid runs the serial form on one
-card, whatever the number of cards.  The sharded forms and the chunked
-(``update_chunk``) update are not ported.
+card, whatever the number of cards.  The sharded forms are not ported.
+The JAX package pads a chunked update's rows to whole chunks
+(``_pad_chunk_rows``); the port's chunk loops run on the host, so its last
+chunk is short instead, which counts the same pulses.
 
 The weights are split into contiguous blocks once per managed read (a pad
 where the shape does not divide, and a copy where the grid has more than
@@ -293,44 +299,64 @@ def _finalize_blocks(w: Tensor, maps: DeviceMaps, count_up: Tensor,
     return torch.clamp(w + dw.to(cfg.dtype), -maps.bound, maps.bound)
 
 
-def _grid_update(w: Tensor, maps: DeviceMaps, xp: Tensor, dp: Tensor,
-                 cx: Tensor, cd: Tensor, key: prng.AnyKey, cfg: RPUConfig,
-                 g: TileGrid, *, row_offset: Optional[int] = None) -> Tensor:
-    """The update of padded column and row drivers ``xp``, ``dp``: one count
-    over the streams drawn at the padded widths, then
-    :func:`_finalize_blocks`."""
-    k_a, k_b, k_c = prng.split(key, 3)
-    count_up, count_dn = update_lib.stream_counts(
-        xp, dp, cx, cd, k_a, k_b, cfg, row_offset=row_offset)
-    return _finalize_blocks(w, maps, count_up, count_dn, k_c, cfg, g)
-
-
 def grid_pulse_update(w: Tensor, maps: DeviceMaps, x: Tensor, delta: Tensor,
                       key: prng.AnyKey, cfg: RPUConfig, lr: float) -> Tensor:
     """Grid update cycle.  ``delta`` already carries the physical
     (replicated) row layout.  The streams are drawn once over the padded
     drivers with the unpadded UM gains and counted at once (the counts of
     block ``(i, j)`` are the slice of the full counts); each block then
-    finalizes under ``fold_in(k_c, i * grid_cols + j)``."""
+    finalizes under ``fold_in(k_c, i * grid_cols + j)``.  With
+    ``cfg.update_chunk`` below the number of vector pairs, the counts
+    accumulate over row chunks of the padded drivers first."""
     g = TileGrid.for_tile(tuple(w.shape), cfg)
     if x.dim() == 1:
         x, delta = x[None], delta[None]
+    k_a, k_b, k_c = prng.split(key, 3)
     cx, cd = management.um_factors(x, delta, cfg, lr)
-    return _grid_update(w, maps, g.pad_last(x, g.cols_pad),
-                        g.pad_last(delta, g.rows_pad), cx, cd, key, cfg, g)
+    xp = g.pad_last(x, g.cols_pad)
+    dp = g.pad_last(delta, g.rows_pad)
+    t = x.numel() // x.shape[-1]
+    if cfg.update_chunk is not None and cfg.update_chunk < t:
+        x2, d2 = xp.reshape(t, g.cols_pad), dp.reshape(t, g.rows_pad)
+        return _grid_update_streamed_serial(
+            w, maps, (x2, d2), update_lib.row_slices, cx, cd, k_a, k_b, k_c,
+            cfg, g, t, cfg.update_chunk)
+    count_up, count_dn = update_lib.stream_counts(xp, dp, cx, cd, k_a, k_b,
+                                                  cfg)
+    return _finalize_blocks(w, maps, count_up, count_dn, k_c, cfg, g)
 
 
-def grid_pulse_update_streamed(w: Tensor, maps: DeviceMaps, cols: Tensor,
-                               delta_phys: Tensor, key: prng.AnyKey,
-                               cfg: RPUConfig, lr: float, *,
+def grid_pulse_update_streamed(w: Tensor, maps: DeviceMaps, src,
+                               get_chunk: update_lib.GetChunk,
+                               key: prng.AnyKey, cfg: RPUConfig, lr: float,
+                               *, total: int, chunk: int,
                                um_maxima=None) -> Tensor:
-    """Grid update over im2col columns ``(P, cols)`` and replicated error
-    rows ``(P, rows_phys)`` in one chunk: the conv entry, as
-    ``update.pulse_update_streamed``, which checks ``um_maxima``)."""
+    """Grid update over generated chunks (the streaming conv cycles):
+    ``get_chunk(src, start, rows)`` makes one chunk of columns and
+    replicated error rows, padded here to the grid's widths; as
+    ``update.pulse_update_streamed``, which it serves."""
     g = TileGrid.for_tile(tuple(w.shape), cfg)
-    x_max, d_max = um_maxima if um_maxima is not None else (None, None)
-    cx, cd = management.um_factors_from_max(x_max, d_max, cfg, lr,
-                                            device=cols.device)
-    return _grid_update(w, maps, g.pad_last(cols, g.cols_pad),
-                        g.pad_last(delta_phys, g.rows_pad), cx, cd, key, cfg,
-                        g, row_offset=0)
+    k_a, k_b, k_c = prng.split(key, 3)
+    cx, cd = update_lib.um_from_maxima(um_maxima, cfg, lr, w.device)
+
+    def get_padded(s, start, n):
+        cols, delta = get_chunk(s, start, n)
+        return g.pad_last(cols, g.cols_pad), g.pad_last(delta, g.rows_pad)
+
+    return _grid_update_streamed_serial(w, maps, src, get_padded, cx, cd,
+                                        k_a, k_b, k_c, cfg, g, total, chunk)
+
+
+def _grid_update_streamed_serial(w: Tensor, maps: DeviceMaps, src,
+                                 get_padded, cx: Tensor, cd: Tensor,
+                                 k_a: prng.AnyKey, k_b: prng.AnyKey,
+                                 k_c: prng.AnyKey, cfg: RPUConfig,
+                                 g: TileGrid, total: int, chunk: int
+                                 ) -> Tensor:
+    """The chunked grid update: each generated chunk's padded drivers have
+    their streams drawn at the chunk's rows and counted (the JAX package's
+    ``_gen_chunk_streams``), the counts adding up over the chunks (one
+    count launch each); then :func:`_finalize_blocks`."""
+    count_up, count_dn = update_lib.accumulate_counts(
+        src, get_padded, total, chunk, cx, cd, k_a, k_b, cfg)
+    return _finalize_blocks(w, maps, count_up, count_dn, k_c, cfg, g)

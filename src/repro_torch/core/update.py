@@ -20,11 +20,21 @@ layout.  Under ``cfg.use_pallas`` the counts go through the pulse-count
 kernel (``kernels/pulse_update.py``); the fused backward+update kernel
 regenerates the same streams on the card.  A tile with a sub-tile grid
 (``cfg.tile_grid``) updates through ``core/tile_grid.py``.
+
+Streaming: with ``cfg.update_chunk`` the flattened batch is walked in
+chunks of that many rows, and the conv cycles walk their position columns
+in chunks (:func:`pulse_update_streamed`).  A chunk's streams are its rows'
+draws at ``row_offset=start``, and its counts add to the chunks' before it
+(one pulse-count launch per chunk, accumulating into the first chunk's
+outputs), so only one chunk's ``(rows, BL, n)`` streams are ever live and
+the counts, hence the updated weights, are the materialized cycle's bits.
+The chunk loops are host loops with host-int offsets: a captured step
+records one launch per chunk.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -126,30 +136,80 @@ def finalize_counts(w: Tensor, maps: DeviceMaps, count_up: Tensor,
     return torch.clamp(w + dw, -maps.bound, maps.bound)
 
 
+Counts = Tuple[Tensor, Tensor]
+
+
 def stream_counts(x: Tensor, delta: Tensor, cx: Tensor, cd: Tensor,
                   k_a: prng.Key, k_b: prng.Key, cfg: RPUConfig, *,
-                  row_offset: Optional[int] = None) -> Tuple[Tensor, Tensor]:
-    """Counts of (column, row) driver pairs: streams sampled here, counted
-    by the pulse-count kernel under ``cfg.use_pallas`` (else the plain
-    two-product version)."""
+                  row_offset: Optional[int] = None,
+                  out: Optional[Counts] = None) -> Counts:
+    """Counts of (column, row) driver pairs: streams sampled here (at the
+    counters of rows ``row_offset`` on), counted by the pulse-count kernel
+    under ``cfg.use_pallas`` (else the plain two-product version); with
+    ``out``, added to those counts in place."""
     a = sample_signed_streams(k_a, x, cx, cfg.bl, cfg.fast_rng,
                               row_offset=row_offset)
     b = sample_signed_streams(k_b, delta, cd, cfg.bl, cfg.fast_rng,
                               row_offset=row_offset)
     if cfg.use_pallas:
         from repro_torch.kernels import ops as kops
-        return kops.pulse_counts(b, a)
-    return coincidence_counts(b, a)
+        return kops.pulse_counts(b, a, out)
+    up, dn = coincidence_counts(b, a)
+    if out is None:
+        return up, dn
+    return out[0].add_(up), out[1].add_(dn)
+
+
+def chunk_starts(total: int, chunk: int):
+    """``(start, rows)`` of each chunk of ``total`` rows; the last chunk
+    holds what is left (its missing rows would fire no pulse and read
+    nothing that is kept)."""
+    return [(s, min(chunk, total - s)) for s in range(0, total, chunk)]
+
+
+#: ``get_chunk(src, start, rows) -> (cols, delta_phys)``: rows ``[start,
+#: start + rows)`` of the column drivers and the replicated error rows.
+GetChunk = Callable[[object, int, int], Tuple[Tensor, Tensor]]
+
+
+def row_slices(src, start: int, rows: int) -> Tuple[Tensor, Tensor]:
+    """The :data:`GetChunk` of materialized drivers ``src = (x2, d2)``."""
+    return src[0][start:start + rows], src[1][start:start + rows]
+
+
+def accumulate_counts(src, get_chunk: GetChunk, total: int, chunk: int,
+                      cx: Tensor, cd: Tensor, k_a: prng.Key, k_b: prng.Key,
+                      cfg: RPUConfig) -> Counts:
+    """Coincidence counts of ``total`` driver rows, ``chunk`` at a time:
+    each chunk's streams drawn at its rows' counters and counted into the
+    first chunk's outputs (exact: integers)."""
+    acc = None
+    for start, n in chunk_starts(total, chunk):
+        cols, delta = get_chunk(src, start, n)
+        acc = stream_counts(cols, delta, cx, cd, k_a, k_b, cfg,
+                            row_offset=start, out=acc)
+    return acc
+
+
+def _chunked_counts(x2: Tensor, d2: Tensor, cx: Tensor, cd: Tensor,
+                    k_a: prng.Key, k_b: prng.Key, cfg: RPUConfig,
+                    chunk: int) -> Counts:
+    """Coincidence counts over row chunks of the flattened (samples x
+    positions) contraction axis: only ``chunk`` rows of signed streams are
+    live at a time."""
+    return accumulate_counts((x2, d2), row_slices, x2.shape[0], chunk, cx,
+                             cd, k_a, k_b, cfg)
 
 
 def pulse_update(w: Tensor, maps: DeviceMaps, x: Tensor, delta: Tensor,
                  key: prng.Key, cfg: RPUConfig, lr: float) -> Tensor:
     """Full update cycle on the physical weights.  ``delta`` is the logical
     error ``(..., out_f)``; it is replicated to the #_d physical row blocks
-    here (independent streams per physical row driver)."""
-    from repro_torch.core.tile import (_grid_routed, check_supported,
-                                       replicate_delta)
-    check_supported(cfg)
+    here (independent streams per physical row driver).  With
+    ``cfg.update_chunk`` below the number of vector pairs, the counts
+    accumulate over chunks of them (:func:`_chunked_counts`); maps, ctoc
+    noise and the clip apply once, as in the materialized cycle."""
+    from repro_torch.core.tile import _grid_routed, replicate_delta
     delta = replicate_delta(delta, cfg.devices_per_weight,
                             rows_phys=w.shape[0])
     if _grid_routed(cfg):
@@ -159,29 +219,49 @@ def pulse_update(w: Tensor, maps: DeviceMaps, x: Tensor, delta: Tensor,
         x, delta = x[None], delta[None]
     k_a, k_b, k_c = prng.split(key, 3)
     cx, cd = management.um_factors(x, delta, cfg, lr)
-    count_up, count_dn = stream_counts(x, delta, cx, cd, k_a, k_b, cfg)
+    t = x.numel() // x.shape[-1]
+    if cfg.update_chunk is not None and cfg.update_chunk < t:
+        count_up, count_dn = _chunked_counts(
+            x.reshape(t, x.shape[-1]), delta.reshape(t, delta.shape[-1]),
+            cx, cd, k_a, k_b, cfg, cfg.update_chunk)
+    else:
+        count_up, count_dn = stream_counts(x, delta, cx, cd, k_a, k_b, cfg)
     return finalize_counts(w, maps, count_up, count_dn, k_c, cfg)
 
 
-def pulse_update_streamed(w: Tensor, maps: DeviceMaps, cols: Tensor,
-                          delta_phys: Tensor, key: prng.Key, cfg: RPUConfig,
-                          lr: float, *, um_maxima=None) -> Tensor:
-    """Update cycle over im2col columns ``(P, cols)`` and replicated error
-    rows ``(P, rows_phys)`` — the conv entry, in one chunk.  ``um_maxima``
-    are the precomputed ``(max|x|, max|d|)`` (the window max of the
-    activation volume), required under update management."""
+def um_from_maxima(um_maxima, cfg: RPUConfig, lr: float, device):
+    """Pulse gains from precomputed ``(max|x|, max|d|)`` extrema, which
+    update management over never-materialized columns requires."""
+    if um_maxima is None:
+        if cfg.update_management:
+            raise ValueError("update management over streamed chunks needs "
+                             "the precomputed (x_max, d_max) extrema")
+        return management.um_factors_from_max(None, None, cfg, lr,
+                                              device=device)
+    return management.um_factors_from_max(*um_maxima, cfg, lr)
+
+
+def pulse_update_streamed(w: Tensor, maps: DeviceMaps, src,
+                          get_chunk: GetChunk, key: prng.Key, cfg: RPUConfig,
+                          lr: float, *, total: int, chunk: int,
+                          um_maxima=None) -> Tensor:
+    """Update cycle over generated chunks: the streaming conv entry
+    (``core/conv_mapping.py``).  ``get_chunk(src, start, rows)`` makes one
+    chunk of im2col columns and the matching replicated error rows (the
+    last chunk holds ``total - start`` rows), so neither the whole column
+    matrix nor its streams exist at once.  ``um_maxima``: the precomputed
+    ``(max|x|, max|d|)`` (the window max of the activation volume),
+    required under update management.  The counts of every chunk add up,
+    then maps, ctoc noise and the clip apply once: the bits of
+    :func:`pulse_update` over the materialized columns."""
     from repro_torch.core.tile import _grid_routed
-    if um_maxima is None and cfg.update_management:
-        raise ValueError("update management over conv columns needs the "
-                         "precomputed (x_max, d_max) extrema")
     if _grid_routed(cfg):
         from repro_torch.core import tile_grid
         return tile_grid.grid_pulse_update_streamed(
-            w, maps, cols, delta_phys, key, cfg, lr, um_maxima=um_maxima)
+            w, maps, src, get_chunk, key, cfg, lr, total=total, chunk=chunk,
+            um_maxima=um_maxima)
     k_a, k_b, k_c = prng.split(key, 3)
-    x_max, d_max = um_maxima if um_maxima is not None else (None, None)
-    cx, cd = management.um_factors_from_max(x_max, d_max, cfg, lr,
-                                            device=cols.device)
-    count_up, count_dn = stream_counts(cols, delta_phys, cx, cd, k_a, k_b,
-                                       cfg, row_offset=0)
+    cx, cd = um_from_maxima(um_maxima, cfg, lr, w.device)
+    count_up, count_dn = accumulate_counts(src, get_chunk, total, chunk, cx,
+                                           cd, k_a, k_b, cfg)
     return finalize_counts(w, maps, count_up, count_dn, k_c, cfg)

@@ -30,14 +30,17 @@ __global__ void __launch_bounds__(COUNT_THREADS)
 
 }  // namespace analog
 
-// rows (T, M) and cols (T, N) f32 in {0, +1, -1}; up/dn (M, N) f32 outputs
-// (zeroed here).
+// rows (T, M) and cols (T, N) f32 in {0, +1, -1}; up/dn (M, N) f32 outputs,
+// zeroed here unless accumulate is set (then the counts add to what they
+// hold: a streaming update's later chunks, exact as the blocks' atomics).
 extern "C" int pulse_counts_launch(const float* rows, const float* cols,
                                    float* up, float* dn, int T, int M, int N,
-                                   void* stream) {
+                                   int accumulate, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaMemsetAsync(up, 0, sizeof(float) * (size_t)M * N, s);
-  cudaMemsetAsync(dn, 0, sizeof(float) * (size_t)M * N, s);
+  if (!accumulate) {
+    cudaMemsetAsync(up, 0, sizeof(float) * (size_t)M * N, s);
+    cudaMemsetAsync(dn, 0, sizeof(float) * (size_t)M * N, s);
+  }
   const analog::CountTile c = analog::make_count_tile(M, N, T, up, dn);
   const int blocks = analog::count_blocks(c);
   if (blocks > 0)

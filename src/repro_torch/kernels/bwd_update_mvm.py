@@ -98,7 +98,8 @@ def conv_bwd_update_plain(w, xpad, delta_rep, geom, nm_s, read_seeds,
                           bl: int = 10):
     """Plain PyTorch version of the conv entry: the column drivers are the
     gathered im2col columns (channel-major, bias last)."""
-    return _read_and_streams(w, delta_rep, gather_columns(xpad, geom), nm_s,
+    cols = gather_columns(xpad, geom, 0, geom.positions)
+    return _read_and_streams(w, delta_rep, cols, nm_s,
                              read_seeds, upd_seeds, gains, sigma=sigma,
                              alpha=alpha, two_phase=two_phase,
                              retry_scale=retry_scale, bl=bl)

@@ -36,7 +36,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.gemm import (  # noqa: F401 (the plan's constants)
     GEMV_MAXB, SMS, TILES, scratch, seed_arg, tile_shape, vec_rows)
 from repro_torch.kernels.noisy_mvm import (
-    check_operands, counters, read_segment, segment_product, segments)
+    check_operands, chunk_layout, counters, read_segment, segment_product,
+    segments)
 from repro_torch.utils import fastrng
 
 _M32 = 0xFFFFFFFF
@@ -90,8 +91,9 @@ def managed_mvm_plain(w: torch.Tensor, x2d: torch.Tensor, nm_s: torch.Tensor,
     acc1, acc2 = zeros(), (zeros() if two_phase else None)
     sat1 = torch.zeros(b, dtype=torch.bool, device=x2d.device)
     sat2 = sat1.clone()
+    xl, keep = chunk_layout(x2d, row_offset, total_rows)
     for si, (k0, k1) in enumerate(segments(k_dim, n_seg)):
-        v1 = segment_product(w, x2d, k0, k1, transpose) / s
+        v1 = segment_product(w, xl, k0, k1, transpose)[keep] / s
         e = counters(rows, si, n_seg, out_phys) if sigma > 0.0 else None
         v, f = read_segment(v1, seed1_m, e, n_total, sigma, alpha)
         sat1 = sat1 | f
@@ -128,7 +130,10 @@ def plan(b: int, k_dim: int, out_phys: int, transpose: bool,
     or 1 below 4096 outputs (where 2 would leave fewer than two 16-output
     blocks per SM).  The tiled path runs a block per tile and segment,
     and takes 128x128 tiles where they give every SM a block, else 64x128
-    (8x8 outputs per thread leave few threads at small batch)."""
+    (8x8 outputs per thread leave few threads at small batch).  A chunk of
+    a larger read is planned at the whole read's ``b`` (its
+    ``total_rows``), so its rows take the whole read's path and add their
+    products in its order."""
     vec = vec_rows(aligned, k_dim, out_phys, transpose)
     if not transpose and b <= GEMV_MAXB:
         ncw = 2 if out_phys >= 4096 else 1
@@ -187,7 +192,9 @@ def managed_mvm(w: torch.Tensor, x2d: torch.Tensor, nm_s: torch.Tensor,
     residual = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
         return y, residual
-    p = plan(b, k_dim, out_phys, transpose,
+    # planned as the whole read that this one may be a chunk of: every
+    # row then sums its products in the whole read's order
+    p = plan(max(b, total_rows), k_dim, out_phys, transpose,
              w.data_ptr() % 16 == 0 and x2d.data_ptr() % 16 == 0, n_seg)
     n_acc = b * out_phys
     stream = torch.cuda.current_stream(dev).cuda_stream

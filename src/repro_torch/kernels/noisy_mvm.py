@@ -62,6 +62,29 @@ def segment_product(w: torch.Tensor, x2d: torch.Tensor, k0: int, k1: int,
     return x2d[:, k0:k1] @ w[:, k0:k1].T
 
 
+#: Operands of fewer rows take another product path in the CPU's matmul
+#: (MKL), which adds a row's products in another order than for taller
+#: ones; at this many rows and more every row sums alike.
+CPU_MIN_ROWS = 16
+
+
+def chunk_layout(x2d: torch.Tensor, row_offset: Optional[int],
+                 total_rows: int) -> Tuple[torch.Tensor, slice]:
+    """``x2d``, a chunk of rows ``row_offset ..`` of a ``total_rows``-row
+    read, laid out for the plain products so that each row sums as in the
+    whole read, and the slice of its rows in the products: a chunk of
+    fewer than :data:`CPU_MIN_ROWS` rows is zero-padded to that many (or,
+    when the whole read is that short, placed at its rows in a read of the
+    whole's height).  The kernels do the same by their plan."""
+    b = x2d.shape[0]
+    if total_rows <= b or b >= CPU_MIN_ROWS:
+        return x2d, slice(0, b)
+    off = int(row_offset or 0) if total_rows < CPU_MIN_ROWS else 0
+    xp = x2d.new_zeros(min(total_rows, CPU_MIN_ROWS), x2d.shape[1])
+    xp[off:off + b] = x2d
+    return xp, slice(off, off + b)
+
+
 def counters(rows: torch.Tensor, si: int, n_seg: int, out_dim: int
              ) -> torch.Tensor:
     """Flat u32 noise counters ``(row * n_seg + si) * out + col`` (int64)."""
@@ -100,10 +123,11 @@ def noisy_mvm_plain(w: torch.Tensor, x2d: torch.Tensor,
     seed_m = fastrng.mix_seed(seed)
     rows = (torch.arange(b, dtype=torch.int64, device=x2d.device)
             + (0 if row_offset is None else int(row_offset))) & _M32
+    xl, keep = chunk_layout(x2d, row_offset, total_rows)
     y = torch.zeros(b, out_dim, dtype=x2d.dtype, device=x2d.device)
     sat = torch.zeros(b, dtype=torch.bool, device=x2d.device)
     for si, (k0, k1) in enumerate(segments(k_dim, n_seg)):
-        v = segment_product(w, x2d, k0, k1, transpose)
+        v = segment_product(w, xl, k0, k1, transpose)[keep]
         e = counters(rows, si, n_seg, out_dim) if sigma > 0.0 else None
         v, s = read_segment(v, seed_m, e, n_total, sigma, alpha)
         sat = sat | s
@@ -153,7 +177,10 @@ def plan(b: int, k_dim: int, out_dim: int, transpose: bool,
     ``n_seg`` segments and ``out_dim`` outputs; ``aligned``: both base
     pointers 16-byte aligned.  The gemv and the tile shapes are the
     managed read's (``managed_mvm.plan``) but for short segments
-    (SHORT_TILE); the tiled path adds the split."""
+    (SHORT_TILE); the tiled path adds the split.  A chunk of a larger read
+    is planned at the whole read's ``b`` (its ``total_rows``): the path and
+    the split fix the order in which a row's products add, and a tile's
+    shape does not change it."""
     vec = vec_rows(aligned, k_dim, out_dim, transpose)
     if not transpose and b <= GEMV_MAXB:
         return Plan("gemv", 0, 0, 2 if out_dim >= 4096 else 1, vec, 1)
@@ -224,7 +251,9 @@ def noisy_mvm(w: torch.Tensor, x2d: torch.Tensor, seed: fastrng.Seed, *,
     sat = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
         return y, sat
-    p = plan(b, k_dim, out_dim, transpose,
+    # planned as the whole read that this one may be a chunk of: every
+    # row then sums its products in the whole read's order
+    p = plan(max(b, total_rows), k_dim, out_dim, transpose,
              w.data_ptr() % 16 == 0 and x2d.data_ptr() % 16 == 0, n_seg)
     parts = n_seg * p.split if p.path == "tile" else 1
     tiles = (-(-b // p.tile_m) * -(-out_dim // p.tile_n)

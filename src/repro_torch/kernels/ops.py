@@ -249,15 +249,18 @@ def conv_bwd_update_mvm(w: Tensor, xpad: Tensor, delta_rep: Tensor, geom,
             bl=int(cfg.bl))
 
 
-def pulse_counts(streams_rows: Tensor, streams_cols: Tensor
+def pulse_counts(streams_rows: Tensor, streams_cols: Tensor,
+                 out: Optional[Tuple[Tensor, Tensor]] = None
                  ) -> Tuple[Tensor, Tensor]:
     """Kernel-backed coincidence counts of signed streams ``(..., BL, M)``
-    and ``(..., BL, N)`` (leading axes and BL contracted)."""
+    and ``(..., BL, N)`` (leading axes and BL contracted); with ``out``,
+    added to those counts."""
     m = streams_rows.shape[-1]
     n = streams_cols.shape[-1]
     with torch.profiler.record_function("pulse_counts"):
         return _pulse.pulse_counts(streams_rows.reshape(-1, m).contiguous(),
-                                   streams_cols.reshape(-1, n).contiguous())
+                                   streams_cols.reshape(-1, n).contiguous(),
+                                   out)
 
 
 def pulse_update_fused(w: Tensor, maps: DeviceMaps, streams_rows: Tensor,

@@ -11,8 +11,9 @@ plain two-product version in any block order).  Bound: the bytes of the two
 stream matrices; at LeNet's shapes, one launch.
 
 :func:`pulse_counts` launches it for CUDA tensors and runs
-:func:`pulse_counts_plain` only for CPU tensors.  ``launches`` counts kernel
-launches.
+:func:`pulse_counts_plain` only for CPU tensors; given ``out`` it adds the
+counts to those tensors instead of zeroing them first (a streaming update's
+later chunks, ``core/update.py``).  ``launches`` counts kernel launches.
 
 :func:`pulse_update` replaces the fused TPU kernel ``pulse_update_pallas``
 (``pulse_update.py:166``, ``pallas_call`` at :191) with
@@ -28,7 +29,7 @@ streams and the five (M, N) tiles.  It launches for CUDA tensors, runs
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -53,31 +54,42 @@ def pulse_counts_plain(rows2: torch.Tensor, cols2: torch.Tensor
 def _lib():
     fn = build.load("pulse_counts").pulse_counts_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def pulse_counts(rows2: torch.Tensor, cols2: torch.Tensor
+def pulse_counts(rows2: torch.Tensor, cols2: torch.Tensor,
+                 out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Coincidence counts of row streams ``(T, M)`` and column streams
     ``(T, N)`` (float32, entries 0, +-1): ``(count_up, count_dn)``, each
-    ``(M, N)`` float32."""
+    ``(M, N)`` float32; with ``out``, those two tensors with the counts
+    added to them (exact: integers below 2**24)."""
     global launches
     if rows2.dim() != 2 or cols2.dim() != 2 or rows2.shape[0] != \
             cols2.shape[0]:
         raise ValueError(f"streams {tuple(rows2.shape)} and "
                          f"{tuple(cols2.shape)} do not share a slot axis")
-    if not rows2.is_cuda:
-        return pulse_counts_plain(rows2, cols2)
-    check_operands(rows2, cols2)
     t, m = rows2.shape
     n = cols2.shape[1]
-    up = torch.empty(m, n, dtype=torch.float32, device=rows2.device)
-    dn = torch.empty_like(up)
+    if out is not None and any(o.shape != (m, n) for o in out):
+        raise ValueError(f"counts {[tuple(o.shape) for o in out]} do not "
+                         f"fit streams of {m} and {n} drivers")
+    if not rows2.is_cuda:
+        up, dn = pulse_counts_plain(rows2, cols2)
+        if out is None:
+            return up, dn
+        return out[0].add_(up), out[1].add_(dn)
+    check_operands(rows2, cols2, *(out or ()))
+    if out is None:
+        up = torch.empty(m, n, dtype=torch.float32, device=rows2.device)
+        dn = torch.empty_like(up)
+    else:
+        up, dn = out
     rc = _lib()(rows2.data_ptr(), cols2.data_ptr(), up.data_ptr(),
-                dn.data_ptr(), t, m, n,
+                dn.data_ptr(), t, m, n, int(out is not None),
                 torch.cuda.current_stream(rows2.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pulse_counts kernel launch failed: CUDA error "

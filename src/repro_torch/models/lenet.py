@@ -84,6 +84,17 @@ class LeNetConfig:
         return dataclasses.replace(self, policy=policy.prepend(layer, cfg,
                                                                layer))
 
+    def with_stream_chunks(self, update_chunk: Optional[int] = None,
+                           conv_stream_chunk: Optional[int] = None
+                           ) -> "LeNetConfig":
+        """The streaming pipeline on every tile (``RPUConfig.
+        with_streaming``): the materialized step's bits under BM off and
+        two-phase BM, with bounded live bytes of columns and streams."""
+        policy = (self.policy if self.policy is not None
+                  else AnalogPolicy.exact({n: RPUConfig() for n in LAYERS}))
+        return dataclasses.replace(self, policy=policy.map_configs(
+            lambda c: c.with_streaming(update_chunk, conv_stream_chunk)))
+
 
 def _pooled_conv_shape(hw: Tuple[int, int], in_c: int, kernel: int,
                        padding: Padding) -> Tuple[int, int]:

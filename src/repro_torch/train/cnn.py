@@ -18,6 +18,12 @@ data of ``fold_in(k_data, e)``: not the JAX package's
 layers' device settings from :func:`_describe`, the protocol, the test
 errors and, at the end, the result).
 
+Memory: a ``LeNetConfig.with_stream_chunks(update_chunk,
+conv_stream_chunk)`` config streams the conv position columns and the
+update cycle's pulse streams in chunks, so one chunk of columns and
+streams is live at a time instead of every position's; training keeps its
+bits under BM off and two-phase BM (``core/conv_mapping.py``).
+
 Runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

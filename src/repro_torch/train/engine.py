@@ -30,6 +30,13 @@ Under the paper's iterative bound management the step's reads take the
 predicated form of the retry loop (``with_bound_management_predicated`` in
 ``core/management.py``: every retry unrolled, each on a device predicate,
 its keys on the tape), so that step too is one graph replay.
+
+The streaming chunks (``update_chunk``, ``conv_stream_chunk``) are host
+loops with host-int row offsets inside the layers' cycles, so the capture
+records one launch per chunk (and, under iterative BM, each chunk's
+predicated retries), and the graph's private memory pool reuses one
+chunk's buffers for the next.  A chunked epoch gives the bits of the
+materialized one under BM off and two-phase BM.
 The data-parallel split and the sequence engines are not ported.
 """
 

@@ -75,7 +75,8 @@ def test_geometry_columns_and_maxima_match_jax(name, bias):
                 jcm.window_absmax(xp, jg), jcm._conv_nm_scale(xp, jg))
 
     tx = tcm._pad_volume(_t(x), tg)
-    got = (tx, tcm.gather_columns(tx, tg), tcm.window_absmax(tx, tg),
+    got = (tx, tcm.gather_columns(tx, tg, 0, tg.positions),
+           tcm.window_absmax(tx, tg),
            tcm._conv_nm_scale(tx, tg))
     for a, b in zip(got, jax_side(jnp.asarray(x))):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -89,7 +90,7 @@ def test_col2im_matches_jax_bitwise(name):
     zeros = np.zeros((jg.b, jg.h, jg.w, jg.c), np.float32)
     want = jcm.col2im_add(jnp.asarray(z), jg, 0, jg.positions,
                           jnp.asarray(zeros))
-    got = tcm.col2im_add(_t(z), tg, _t(zeros))
+    got = tcm.col2im_add(_t(z), tg, 0, tg.positions, _t(zeros))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -149,7 +150,7 @@ def test_conv_read_matches_jax_kernel(case):
     nm_s = (tcm._conv_nm_scale(xp, tg) if nm
             else torch.ones(tg.positions, 1))
     # margin: no pre-clip value within MARGIN of the bound
-    cols = tcm.gather_columns(xp, tg)
+    cols = tcm.gather_columns(xp, tg, 0, tg.positions)
     raw = (cols / nm_s) @ _t(w).T
     for s in ((1.0, 16.0) if bm else (1.0,)):
         assert float(((raw / s).abs() - alpha).abs().min()) > MARGIN

@@ -142,19 +142,21 @@ def test_presets_parse_and_label_as_jax(spec):
 
 
 def test_presets_refuse_chunks_and_bad_grids():
-    for spec in ("managed:update_chunk=16", "managed:conv_stream_chunk=96",
-                 "managed:tile_grid=2x2:update_chunk=16"):
-        with pytest.raises(NotImplementedError):
-            tpresets.resolve_spec(spec)
-    for spec in ("managed:tile_grid=0x2", "managed:tile_grid=2x-1"):
+    """Chunks below 1 and empty grids are refused as in JAX; chunks of 1
+    and more resolve to JAX's fields, on a grid too."""
+    for spec in ("managed:update_chunk=0", "managed:conv_stream_chunk=-1",
+                 "managed:tile_grid=2x2:update_chunk=0",
+                 "managed:tile_grid=0x2", "managed:tile_grid=2x-1"):
         with pytest.raises(ValueError):
             jpresets.resolve_spec(spec)
         with pytest.raises(ValueError):
             tpresets.resolve_spec(spec)
-    cfg = tdev.RPUConfig(update_chunk=16, tile_grid=(2, 2))
-    with pytest.raises(NotImplementedError, match="chunks"):
-        ttile.check_supported(cfg)
-    ttile.check_supported(tdev.RPUConfig(tile_grid=(2, 2)))
+    for spec in ("managed:update_chunk=16", "managed:conv_stream_chunk=96",
+                 "managed:tile_grid=2x2:update_chunk=16"):
+        tc, jc = tpresets.resolve_spec(spec), jpresets.resolve_spec(spec)
+        assert (tc.update_chunk, tc.conv_stream_chunk, tc.tile_grid) == (
+            jc.update_chunk, jc.conv_stream_chunk,
+            None if jc.tile_grid is None else tuple(jc.tile_grid))
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +376,9 @@ def test_grid_streamed_update_matches_jax(um):
             jnp.float32(v) for v in maxima), force_reference=True),
         w, cols, dphys)
     tw = tup.pulse_update_streamed(
-        _t(w), maps, _t(cols), _t(dphys), prng.key(3), tcfg, LR,
+        _t(w), maps, (_t(cols), _t(dphys)),
+        lambda s, start, n: (s[0][start:start + n], s[1][start:start + n]),
+        prng.key(3), tcfg, LR, total=p, chunk=p,
         um_maxima=None if maxima is None else tuple(
             torch.tensor(v) for v in maxima))
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=0,
