@@ -101,6 +101,20 @@ Phases, each of which makes the script exit non-zero when it fails:
   (h) train 2 epochs of 1024 synthetic images under nm_bm with two-phase
       BM and the fused update through ``engine="scan"``: final test error
       below 0.4;
+  (k) kill and resume: ``repro_torch.train.cnn.train`` with checkpoints
+      (full-width LeNet, batch 8, 512 training and 256 test images, 3
+      epochs, a checkpoint per epoch) in subprocesses on the card, each
+      under its own timeout: FUSED and ITERATIVE at alpha 1 run
+      uninterrupted (the oracles); FUSED is SIGKILLed at the epoch-2
+      boundary twice and resumed under ``engine="scan"`` and under
+      ``engine="python"``, and SIGKILLed while step 2's write is held open
+      (``sigkill_mid_save``: ``latest_step`` must be 1), resumed under
+      scan; ITERATIVE killed at the epoch-2 boundary and resumed under
+      scan.  Every final checkpoint's per-leaf (key, shape, dtype, crc32)
+      and history equal its oracle's, no ``.tmp`` partial is left, no run
+      calls a plain version; the FUSED oracle's final checkpoint restored
+      onto the CPU and onto the card is bitwise equal, and saved again
+      from the card gives the same bytes;
   (r2) one FUSED training step on the card against the plain CPU step on
       the same parameters, images and key: logits, x_bar, new weights;
   (b8) hold the flash-attention kernel against its plain version on the
@@ -2053,6 +2067,215 @@ def lenet_learning(results):
 
 
 # ---------------------------------------------------------------------------
+# (k) kill and resume
+# ---------------------------------------------------------------------------
+
+RESUME_EPOCHS, RESUME_TRAIN, RESUME_TEST = 3, 512, 256
+RESUME_TIMEOUT_S = 300
+RESUME_DIR = ROOT / "build" / "resume"
+_RESUME_ENV = ("REPRO_FAULT_MODE", "REPRO_FAULT_STEP", "REPRO_FAULT_DROP",
+               "REPRO_CKPT_WRITE_DELAY")
+SIGKILL_AT_2 = {"REPRO_FAULT_MODE": "sigkill", "REPRO_FAULT_STEP": 2}
+# step 2's write held open (0.2 s a leaf, 20 leaves) while the kill lands
+MID_SAVE_AT_1 = {"REPRO_FAULT_MODE": "sigkill_mid_save",
+                 "REPRO_FAULT_STEP": 1, "REPRO_CKPT_WRITE_DELAY": 0.2}
+# (name, policy, ckpt dir, killed by, resumed under): the oracle of a policy
+# is its scan run without a fault; every other run is killed under scan
+# and restarted under the engine named
+RESUME_RUNS = (
+    ("fused_oracle", FUSED, "fused_oracle", None, None),
+    ("fused_kill_scan", FUSED, "fused_a", SIGKILL_AT_2, "scan"),
+    ("fused_kill_python", FUSED, "fused_b", SIGKILL_AT_2, "python"),
+    ("fused_mid_save", FUSED, "fused_c", MID_SAVE_AT_1, "scan"),
+    ("iterative_oracle", ITERATIVE_A1, "iterative_oracle", None, None),
+    ("iterative_kill_scan", ITERATIVE_A1, "iterative_a", SIGKILL_AT_2,
+     "scan"),
+)
+
+
+def resume_worker(policy, engine, ckpt_dir, device):
+    """One ``cnn.train`` run with checkpoints (a subprocess of phase k):
+    prints its launches, plain-version calls and history as JSON."""
+    from repro_torch.analog import presets
+    from repro_torch.kernels import ops
+    from repro_torch.models import lenet
+    from repro_torch.train import cnn
+    cfg = lenet.LeNetConfig.from_policy(presets.parse_policy(policy))
+    with _PlainCalls() as plain:
+        r = cnn.train(cfg, epochs=RESUME_EPOCHS, batch=LENET_BATCH,
+                      n_train=RESUME_TRAIN, n_test=RESUME_TEST, seed=0,
+                      engine=engine, ckpt_dir=ckpt_dir, device=device)
+    print("[resume_worker] " + json.dumps(dict(
+        launches=ops.launch_counts(), plain_calls=plain.calls,
+        history=r["test_error"], seconds=r["wallclock_s"])), flush=True)
+
+
+def _start_resume(name, policy, engine, ckpt_dir, env=None):
+    import os
+    e = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    for k in _RESUME_ENV:
+        e.pop(k, None)
+    e.update({k: str(v) for k, v in (env or {}).items()})
+    code = (f"import chip_smoke; chip_smoke.resume_worker({policy!r}, "
+            f"{engine!r}, {str(ckpt_dir)!r}, {DEV!r})")
+    with open(RESUME_DIR / f"{name}.log", "w") as log:
+        return subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT),
+                                env=e, stdout=log, stderr=subprocess.STDOUT)
+
+
+def _run_stage(runs):
+    """Start every run of a stage at once (one process each, all on the
+    one card), each under its own timeout, and wait for all; returns
+    {name: output}.  A run that outlives its timeout or ends otherwise
+    than it should (SIGKILL where a fault was set, exit 0 where none was)
+    fails the phase."""
+    import signal
+    procs = {}
+    try:
+        for name, policy, engine, ckpt_dir, env in runs:
+            procs[name] = (_start_resume(name, policy, engine, ckpt_dir,
+                                         env), time.perf_counter())
+        outs = {}
+        for name, _, _, _, env in runs:
+            proc, t0 = procs[name]
+            try:
+                proc.wait(timeout=max(
+                    1.0, t0 + RESUME_TIMEOUT_S - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                raise PhaseError(f"{name}: no end within "
+                                 f"{RESUME_TIMEOUT_S}s") from None
+            outs[name] = (RESUME_DIR / f"{name}.log").read_text()
+            want = -signal.SIGKILL if env is not None else 0
+            check(proc.returncode == want,
+                  f"{name}: exit {proc.returncode}, expected {want}\n"
+                  f"{outs[name][-3000:]}")
+        return outs
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _worker_report(name, out):
+    """The run's report line, checked: no plain-version call, kernels
+    launched."""
+    line = next((ln for ln in out.splitlines()
+                 if ln.startswith("[resume_worker] ")), None)
+    check(line is not None, f"{name}: no report line\n{out[-1500:]}")
+    rep = json.loads(line.split(" ", 1)[1])
+    check(rep["plain_calls"] == 0,
+          f"{name}: {rep['plain_calls']} plain-version calls on the card")
+    check(sum(rep["launches"].values()) > 0, f"{name}: no kernel launched")
+    return rep
+
+
+def _ckpt_fingerprint(ckpt_dir, step):
+    with open(Path(ckpt_dir) / f"step_{step:010d}" / "index.json") as f:
+        idx = json.load(f)
+    return ([(e["key"], tuple(e["shape"]), e["dtype"], e["crc32"])
+             for e in idx["leaves"]], idx["meta"]["history"])
+
+
+def _readback(policy, ckpt_dir, results):
+    """The card-written final checkpoint restored onto the CPU and onto the
+    card: bitwise equal; saved again from the card: the same bytes."""
+    import torch
+    from repro_torch.analog import presets
+    from repro_torch.checkpoint import store
+    from repro_torch.models import lenet
+    from repro_torch.utils import prng
+    cfg = lenet.LeNetConfig.from_policy(presets.parse_policy(policy))
+    like = (lenet.init(prng.key(0), cfg, device=DEV), ())
+    (on_cpu, _), _ = store.restore(str(ckpt_dir), RESUME_EPOCHS, like,
+                                   device="cpu")
+    (on_card, _), meta = store.restore(str(ckpt_dir), RESUME_EPOCHS, like,
+                                       device=DEV)
+    for n in lenet.LAYERS:
+        a, b = on_cpu[n], on_card[n]
+        for f, x, y in [("w", a.w, b.w)] + [
+                (f, getattr(a.maps, f), getattr(b.maps, f))
+                for f in ("dw_up", "dw_dn", "bound")]:
+            check(x.device.type == "cpu"
+                  and y.device.type == torch.device(DEV).type
+                  and torch.equal(x, y.cpu()),
+                  f"{n}.{f}: restored on the CPU and on the card differ")
+        check(a.seed == b.seed, f"{n}: seeds differ")
+    again = RESUME_DIR / "readback"
+    store.save(str(again), RESUME_EPOCHS, (on_card, ()), meta)
+    same = (_ckpt_fingerprint(again, RESUME_EPOCHS)
+            == _ckpt_fingerprint(ckpt_dir, RESUME_EPOCHS))
+    check(same, "the card's restore saved again gives other bytes")
+    results["resume"]["readback"] = dict(resaved_equal=same)
+    print(f"[resume] readback of {Path(ckpt_dir).name}/step_"
+          f"{RESUME_EPOCHS:010d}: restored on the CPU and on the card "
+          "bitwise equal; saved again from the card, the same crc32 per "
+          "leaf")
+
+
+def kill_and_resume(results):
+    """Stage 1: the two oracles and four runs killed under scan; stage 2:
+    each killed run restarted (under scan, or python), resuming from its
+    newest complete checkpoint.  Every final checkpoint's per-leaf (key,
+    shape, dtype, crc32) and history equal its oracle's."""
+    import shutil
+    from repro_torch.checkpoint import store
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    RESUME_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    outs = _run_stage([(name, policy, "scan", RESUME_DIR / d, env)
+                       for name, policy, d, env, _ in RESUME_RUNS])
+    t1 = time.perf_counter()
+    rec = results.setdefault("resume", {"runs": {}})
+    oracles = {policy: RESUME_DIR / d for _, policy, d, env, _ in RESUME_RUNS
+               if env is None}
+    latest = {}
+    for name, policy, d, env, engine in RESUME_RUNS:
+        if env is None:
+            rep = _worker_report(name, outs[name])
+            rec["runs"][name] = dict(policy=policy, **rep)
+            continue
+        latest[name] = store.latest_step(str(RESUME_DIR / d))
+        check(latest[name] in ((1,) if env is MID_SAVE_AT_1 else (1, 2)),
+              f"{name}: latest step {latest[name]} after the kill")
+    outs = _run_stage([(f"{name}_resumed", policy, engine, RESUME_DIR / d,
+                        None) for name, policy, d, env, engine in RESUME_RUNS
+                       if env is not None])
+    t2 = time.perf_counter()
+    for name, policy, d, env, engine in RESUME_RUNS:
+        if env is None:
+            continue
+        out = outs[f"{name}_resumed"]
+        check(f"[cnn] resumed after epoch {latest[name]}" in out,
+              f"{name}: no resume after epoch {latest[name]}\n{out[-1500:]}")
+        rep = _worker_report(name, out)
+        oracle = oracles[policy]
+        leaves, hist = _ckpt_fingerprint(RESUME_DIR / d, RESUME_EPOCHS)
+        want_leaves, want_hist = _ckpt_fingerprint(oracle, RESUME_EPOCHS)
+        left = [n for n in (RESUME_DIR / d).iterdir()
+                if n.name.endswith(".tmp")]
+        rec["runs"][name] = dict(policy=policy, resumed_under=engine,
+                                 latest_after_kill=latest[name],
+                                 leaves_equal=leaves == want_leaves,
+                                 history_equal=hist == want_hist,
+                                 partials_left=len(left), **rep)
+        print(f"[resume] {name}: killed ({env['REPRO_FAULT_MODE']} at "
+              f"{env['REPRO_FAULT_STEP']}), latest_step {latest[name]}, "
+              f"resumed under {engine}: {len(leaves)} leaves "
+              f"{'equal' if leaves == want_leaves else 'DIFFERENT'} to the "
+              f"oracle's, history {hist} vs {want_hist}")
+        check(len(leaves) == 20 and leaves == want_leaves,
+              f"{name}: final checkpoint differs from the oracle's")
+        check(hist == want_hist, f"{name}: history {hist} != {want_hist}")
+        check(not left, f"{name}: partials left: {left}")
+    _readback(FUSED, RESUME_DIR / "fused_oracle", results)
+    rec.update(stage1_s=t1 - t0, stage2_s=t2 - t1)
+    print(f"[resume] stage 1 (2 oracles, 4 killed runs) {t1 - t0:.1f}s, "
+          f"stage 2 (4 resumed runs) {t2 - t1:.1f}s, one process each, "
+          "all of a stage at once on the card")
+
+
+# ---------------------------------------------------------------------------
 # (r2) one training step: the card against the plain CPU step
 # ---------------------------------------------------------------------------
 
@@ -2764,6 +2987,8 @@ PHASES = [
      stream_engines),
     ("p1", "figure pair 1 in its JAX seed band", figure_pair),
     ("h", "learning", lenet_learning),
+    ("k", "kill and resume: SIGKILLed runs resume bit-exact",
+     kill_and_resume),
     ("r2", "one training step, card vs CPU", step_reference),
     ("e", "kernel times", kernel_times_all),
 ]

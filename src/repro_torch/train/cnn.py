@@ -24,6 +24,19 @@ update cycle's pulse streams in chunks, so one chunk of columns and
 streams is live at a time instead of every position's; training keeps its
 bits under BM off and two-phase BM (``core/conv_mapping.py``).
 
+Checkpoint and resume (``ckpt_dir``, ``ckpt_every``): the JAX package's
+async epoch-boundary checkpoints of ``(params, ())`` in its store's layout
+(:mod:`repro_torch.checkpoint.store`), and a restarted run continues from
+the newest complete one.  Only the tiles and the history are saved: every
+draw is indexed absolutely, so neither engine has state of its own to
+keep.  The epoch engine sets its device step counter from
+``epoch * steps_per_epoch`` and its shuffle from ``fold_in(k_data,
+epoch)`` at each epoch and derives the step's key tape from the counter;
+evaluation reads ``fold_in(k_eval, epoch)``.  A resumed run therefore gives
+the bits of the run that was never interrupted.  The JAX package's
+trainer reshards restored tiles onto its mesh (``reshard_analog``); one
+card has no counterpart of that.
+
 Runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -44,12 +57,15 @@ from repro_torch.train.engine import epoch_permutation
 from repro_torch.utils import prng
 
 
-def make_train_step(cfg: lenet.LeNetConfig):
-    """``step(params, images, labels, key)``: one SGD step in place
-    (``analog_sgd`` in analog mode, ``sgd(lr)`` in digital mode); returns
-    the summed loss (a device scalar).  The engine's
-    ``make_cnn_step_fn``."""
-    return eng.make_cnn_step_fn(cfg)
+def make_train_step(cfg: lenet.LeNetConfig, opt=None):
+    """``step(params, images, labels, key)``: one SGD step in place,
+    ``opt(ws, grads)`` (default ``analog_sgd`` in analog mode, ``sgd(lr)``
+    in digital mode); returns the summed loss (a device scalar).  The
+    engine's ``make_cnn_step_fn``.  The JAX package returns ``(step,
+    opt)`` with a functional ``step(params, opt_state, ...)``; the port's
+    optimizers update in place and keep no state, so only the step is
+    returned."""
+    return eng.make_cnn_step_fn(cfg, opt)
 
 
 def make_eval(cfg: lenet.LeNetConfig, batch: int = 256):
@@ -92,14 +108,22 @@ def train(cfg: lenet.LeNetConfig, *, epochs: int = 15, batch: int = 8,
           n_train: int = 8192, n_test: int = 2048, seed: int = 0,
           log_path: Optional[str] = None, verbose: bool = True,
           eval_every_epoch: bool = True, return_params: bool = False,
-          device="cuda", engine: str = "scan") -> Dict:
+          device="cuda", engine: str = "scan",
+          ckpt_dir: Optional[str] = None, ckpt_every: int = 1) -> Dict:
     """Train per the paper's protocol; returns ``{"test_error": [...],
     "final_error", "mean_last5", "std_last5", "wallclock_s",
     "steps_per_sec", "engine", "device"}`` (and ``"params"`` on request).
     ``engine``: ``"scan"`` (the epoch engine) or ``"python"`` (the
     per-step loop).  Without ``eval_every_epoch`` only the last epoch is
     evaluated; ``log_path`` gets the JSON history after each evaluation
-    and the result at the end."""
+    and the result at the end.
+
+    ``ckpt_dir`` turns on async checkpoints after every ``ckpt_every``-th
+    epoch and the last, and resume: a restarted run restores the newest
+    complete checkpoint (before the engine's first capture, so the graph
+    holds the restored tiles) and continues from the next epoch, with the
+    saved history.  The fault injector (``REPRO_FAULT_*``) is checked at
+    each epoch boundary."""
     if engine not in ("scan", "python"):
         raise ValueError(f"unknown engine {engine!r}")
     from repro_torch.data import mnist
@@ -107,6 +131,21 @@ def train(cfg: lenet.LeNetConfig, *, epochs: int = 15, batch: int = 8,
                                                verbose=verbose)
     k_init, k_data, k_train, k_eval = prng.split(prng.key(seed), 4)
     params = lenet.init(k_init, cfg, device=device)
+    history: List[float] = []
+    start_epoch = 0
+    ckpt = injector = None
+    if ckpt_dir:
+        from repro_torch.checkpoint import store
+        from repro_torch.distributed.fault import FaultInjector
+        ckpt = store.AsyncCheckpointer(ckpt_dir)
+        injector = FaultInjector.from_env()
+        latest = store.latest_step(ckpt_dir)
+        if latest is not None:
+            (params, _), meta = store.restore(ckpt_dir, latest, (params, ()))
+            start_epoch = int(meta["epoch"])
+            history = list(meta.get("history", []))
+            if verbose:
+                print(f"[cnn] resumed after epoch {start_epoch}", flush=True)
     if engine == "scan":
         run_epoch = eng.make_cnn_epoch_fn(cfg, batch=batch)
         evaluate = eng.make_cnn_eval_fn(cfg)
@@ -119,21 +158,31 @@ def train(cfg: lenet.LeNetConfig, *, epochs: int = 15, batch: int = 8,
     xte_d, yte_d = torch.from_numpy(xte).to(device), torch.from_numpy(
         yte).to(device)
 
-    history: List[float] = []
     spe = len(xtr) // batch
     t0 = time.perf_counter()
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
+        if injector is not None:
+            injector.check(epoch, flush=ckpt)
         run_epoch(params, xtr_d, ytr_d, k_data, k_train, epoch)
-        if not (eval_every_epoch or epoch == epochs - 1):
-            continue
-        err = evaluate(params, xte_d, yte_d, prng.fold_in(k_eval, epoch))
-        history.append(err)
-        if verbose:
-            print(f"[epoch {epoch + 1:3d}/{epochs}] test error "
-                  f"{100 * err:6.2f}%  ({time.perf_counter() - t0:6.1f}s)",
-                  flush=True)
-        if log_path:
-            _dump(log_path, cfg, history, epochs, batch, n_train, seed)
+        if eval_every_epoch or epoch == epochs - 1:
+            err = evaluate(params, xte_d, yte_d, prng.fold_in(k_eval, epoch))
+            history.append(err)
+            if verbose:
+                print(f"[epoch {epoch + 1:3d}/{epochs}] test error "
+                      f"{100 * err:6.2f}%  "
+                      f"({time.perf_counter() - t0:6.1f}s)", flush=True)
+            if log_path:
+                _dump(log_path, cfg, history, epochs, batch, n_train, seed)
+        if ckpt is not None and ((epoch + 1) % ckpt_every == 0
+                                 or epoch == epochs - 1):
+            # the host copy is taken here, before the next epoch's
+            # in-place updates
+            ckpt.save(epoch + 1, (params, ()),
+                      {"epoch": epoch + 1, "history": history})
+            if injector is not None:
+                injector.check(epoch, saving=True)
+    if ckpt is not None:
+        ckpt.wait()
     wallclock = time.perf_counter() - t0
     result = {
         "test_error": history,
@@ -141,7 +190,8 @@ def train(cfg: lenet.LeNetConfig, *, epochs: int = 15, batch: int = 8,
         "mean_last5": float(np.mean(history[-5:])) if history else None,
         "std_last5": float(np.std(history[-5:])) if history else None,
         "wallclock_s": wallclock,
-        "steps_per_sec": epochs * spe / wallclock if wallclock > 0 else None,
+        "steps_per_sec": ((epochs - start_epoch) * spe / wallclock
+                          if wallclock > 0 else None),
         "engine": engine,
         "device": str(torch.device(device)),
     }

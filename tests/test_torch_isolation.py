@@ -46,9 +46,13 @@ def test_walker_sees_forbidden_imports(tmp_path):
 
 
 def test_covers_every_package_of_the_port():
-    """Every package of the port, the figure suite's included, is walked."""
+    """Every package of the port, the figure suite's and the checkpoint
+    store's included, is walked."""
     pkgs = {p.parent.name for p in FILES if p.name == "__init__.py"}
-    assert {"benchmarks", "core", "kernels", "train", "models"} <= pkgs
+    assert {"benchmarks", "core", "kernels", "train", "models",
+            "checkpoint", "distributed"} <= pkgs
+    walked = {(p.parent.name, p.name) for p in FILES}
+    assert {("checkpoint", "store.py"), ("distributed", "fault.py")} <= walked
     names = {p.name for p in FILES if p.parent.name == "benchmarks"}
     assert {"cnn_suite.py", "bands.py", "table2_alexnet.py"} <= names
 

@@ -123,6 +123,23 @@ def test_no_kernel_launch_on_cpu():
     assert set(tops.launch_counts().values()) == {0}
 
 
+def test_make_train_step_takes_opt():
+    """``opt(ws, grads)`` replaces the default step: it gets one gradient
+    per tile, of the tile's shape, and a step that ignores them leaves the
+    tiles as they were, where the default moves them."""
+    cfg = tlenet.LeNetConfig(mode="digital")
+    x, y = (torch.from_numpy(a) for a in _batch())
+    calls = []
+    for opt in (None, lambda ws, gs: calls.append([g.shape for g in gs])):
+        params = tlenet.init(prng.key(1), cfg)
+        before = [params[n].w.detach().clone() for n in tlenet.LAYERS]
+        tcnn.make_train_step(cfg, opt)(params, x, y, None)
+        same = [torch.equal(b, params[n].w.detach())
+                for b, n in zip(before, tlenet.LAYERS)]
+        assert same == [opt is not None] * 4
+    assert calls == [[params[n].w.shape for n in tlenet.LAYERS]]
+
+
 def test_eval_pads_the_last_batch():
     cfg = tlenet.LeNetConfig.from_policy(tpresets.parse_policy(FUSED))
     params = tlenet.init(prng.key(1), cfg)
