@@ -98,6 +98,26 @@ Phases, each of which makes the script exit non-zero when it fails:
       iterative BM, through the epoch engine); fig3b_nm_bm inside its JAX
       seed band and the pair in JAX's order
       (``repro_torch/benchmarks/bands.py``);
+  (l) the analog LSTM/GRU copy-task trainer (``repro_torch.recurrent``,
+      ``launch/train.py``): #1, #2 at the recurrent reads (wx 128x9 and wh
+      128x32 at B 8 and 16, the readout 8x33 at 272 and 160 rows; forward
+      and transpose) and #6 at wx and wh (stream rows at 0 and 33 x 8)
+      against their plain versions, #4 accumulated over 34 timesteps at
+      ``row_offset = t * 8`` bitwise one count over the 272 stacked rows;
+      ``train_sequence`` at full width (hidden 32, T 34, batch 8, one epoch
+      of 25 steps and an evaluation) through both engines, launch
+      counters set to 0 before each run and read after it, under SEQ_IT
+      (the paper's iterative BM at alpha 1 on #1 and #4) and SEQ_FUSED
+      (two-phase BM on #2 and #6) for the LSTM and SEQ_FUSED for the GRU:
+      graphed tiles bitwise the loop's, no plain-version call; for both
+      LSTM policies two epochs of the engine against the loop with
+      ``count_retries`` (equal retries in the second, not zero under
+      SEQ_IT), the launches per replay, the captured step's nodes and key
+      tape, both engines' steps/s and a replayed step's profile; one
+      SEQ_FUSED step card vs CPU; and the recurrent sequel's figure
+      (``benchmarks/lstm_management.py``) at its protocol, seeds 0-2, on
+      the kernels: every curve inside its JAX seed band and managed ending
+      at least 0.1 above unmanaged at every seed;
   (h) train 2 epochs of 1024 synthetic images under nm_bm with two-phase
       BM and the fused update through ``engine="scan"``: final test error
       below 0.4;
@@ -141,7 +161,8 @@ Phases, each of which makes the script exit non-zero when it fails:
       ``F.scaled_dot_product_attention`` for the flash kernel, two
       ``torch.matmul`` and the elementwise finalize for the fused update;
       the managed read also at qwen3_14b's read shapes (B 2000 and 2), the
-      raw read at the shapes of LeNet's ITERATIVE step, and where the time
+      raw read at the shapes of LeNet's ITERATIVE step, #1, #2, #4 and #6
+      at the full-width LSTM's shapes, and where the time
       of one call goes (#2's and #1's decode read, #3's K1 read, #6 at W4,
       #7 at K2 with 13 devices per weight: host enqueue, wall, device time,
       kernels, launches and allocations per call); the key-schedule kernel
@@ -2730,6 +2751,346 @@ def smoke_reference_qwen3(results):
 
 
 # ---------------------------------------------------------------------------
+# (l) the analog LSTM/GRU copy-task trainer: temporal weight reuse
+# ---------------------------------------------------------------------------
+
+# the trainer's full width: hidden 32, vocab 8, seq 16 (T = 34), batch 8
+SEQ_T, SEQ_B, SEQ_SEQ = 34, 8, 16
+# (tile, rows, cols) and the batches each read runs at: the cells' per-
+# timestep reads (B 8, and the figure's 16) and the readout over T x B rows
+# (272, and the figure's 10 x 16 = 160)
+SEQ_TILES = [("wx", 128, 9, (8, 16)), ("wh", 128, 32, (8, 16)),
+             ("readout", 8, 33, (272, 160))]
+# the paper's iterative BM on the kernels.  At the figure's alpha 2 no read
+# of a full-width epoch saturates (no retry in 4 steps on the CPU); at
+# alpha 1 they retry
+SEQ_IT = "nm_bm:use_pallas=true:out_bound=1"
+SEQ_FUSED = "nm_bm:use_pallas=true:bm_mode=two_phase:fuse_bwd_update=true"
+# (label, arch, train_sequence's policy arguments): the GRU takes SEQ_FUSED
+# through the trainer's flags (bare --analog on rpu_nm_bm)
+SEQ_RUNS = (("seq_it", "lstm", dict(analog_policy=SEQ_IT)),
+            ("seq_fused", "lstm", dict(analog_policy=SEQ_FUSED)),
+            ("gru_fused", "gru", dict(analog=True, bm_mode="two_phase",
+                                      use_pallas=True,
+                                      fuse_bwd_update=True)))
+# launches per replayed step: 69 managed reads each way (wx and wh at each
+# of 34 timesteps, the readout once), each under iterative BM a first raw
+# read and 10 predicated retries; 69 pulse counts (one per tile per
+# timestep, the readout's one) or 69 fused backward+updates
+SEQ_PER_STEP = {
+    "seq_it": {"noisy_read": 2 * 69 * 11, "pulse_counts": 69},
+    "seq_fused": {"managed_read": 69, "bwd_update": 69},
+    "gru_fused": {"managed_read": 69, "bwd_update": 69},
+}
+SEQ_ACT_ATOL = 1e-5              # tests/test_torch_recurrent.py
+
+
+def seq_kernels_vs_plain(results):
+    """#1 and #2 at the recurrent reads (wx 128x9, wh 128x32, readout 8x33;
+    forward and transpose; NM off and on for #2), #6 at wx and wh with the
+    stream counters at row 0 and at the last timestep's 33 x 8, and #4
+    accumulated over 34 timesteps at ``row_offset = t * 8`` bitwise one
+    count over the 272 stacked rows (and its plain version)."""
+    import torch
+    from repro_torch.core import update
+    from repro_torch.kernels import bwd_update_mvm as kb
+    from repro_torch.kernels import managed_mvm as km
+    from repro_torch.kernels import noisy_mvm as kn
+    from repro_torch.kernels import pulse_update as kp
+
+    ok, seed = True, 900
+    for name, rows, cols, batches in SEQ_TILES:
+        for b in batches:
+            for tr in (False, True):
+                seed += 1
+                g = torch.Generator(device=DEV).manual_seed(seed)
+                k = rows if tr else cols
+                w = (torch.randn(rows, cols, generator=g, device=DEV)
+                     * k ** -0.5).contiguous()
+                x = _scaled_rows(g, b, k)
+                case = f"LSTM {name} {'transpose' if tr else 'fwd'} B={b}"
+                mag = float((x.abs() @ (w.abs() if tr else w.abs().T)).max())
+                kw = dict(sigma=SIGMA, alpha=2.0, transpose=tr)
+                y, s = kn.noisy_mvm(w, x, 0x5EED + seed, **kw)
+                yp, sp = kn.noisy_mvm_plain(w, x, 0x5EED + seed, **kw)
+                ok &= _read_check(results, "noisy_mvm", case, y, yp, s, sp,
+                                  mag)
+                ok &= _seed_and_predicate_check(results, case, w, x,
+                                                0x5EED + seed, kw, y, s)
+                for nm in (False, True):
+                    nm_s = (x.abs().amax(1, keepdim=True) if nm
+                            else torch.ones(b, 1, device=DEV))
+                    mkw = dict(kw, two_phase=True, retry_scale=16.0)
+                    y, s = km.managed_mvm(w, x, nm_s, (seed, 77), **mkw)
+                    yp, sp = km.managed_mvm_plain(w, x, nm_s, (seed, 77),
+                                                  **mkw)
+                    ok &= _read_check(results, "managed_mvm",
+                                      f"{case} nm={int(nm)}", y, yp, s, sp,
+                                      mag)
+    gains = torch.tensor([1.1, 0.7], device=DEV)
+    for name, rows, cols, _ in SEQ_TILES[:2]:
+        seed += 1
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        w = (torch.randn(rows, cols, generator=g, device=DEV)
+             * rows ** -0.5).contiguous()
+        x = _scaled_rows(g, SEQ_B, cols, (1.0,))
+        dd = _scaled_rows(g, SEQ_B, rows)
+        nm_s = dd.abs().amax(1, keepdim=True)
+        for row0 in (0, (SEQ_T - 1) * SEQ_B):
+            ok &= _fused_checks(
+                results, "bwd_update_mvm", f"LSTM {name} B=8 row0={row0}",
+                [(dd, nm_s, (51, 52), (61, 62, row0), "")],
+                lambda d_, n_, rs, us, **kw: kb.bwd_update_mvm(
+                    w, d_, x, n_, rs, us, gains, **kw),
+                lambda d_, n_, rs, us, **kw: kb.bwd_update_mvm_plain(
+                    w, d_, x, n_, rs, us, gains, **kw),
+                w, dict(sigma=SIGMA, alpha=2.0, two_phase=True, bl=10))
+    gain = torch.tensor(0.8, device=DEV)
+    for name, rows, cols, _ in SEQ_TILES[:2]:
+        seed += 1
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        drv = torch.randn(SEQ_T, SEQ_B, cols, generator=g, device=DEV)
+        err = torch.randn(SEQ_T, SEQ_B, rows, generator=g, device=DEV)
+        acc = None
+        for t in range(SEQ_T):
+            r = update.signed_streams(7, err[t], gain, 10,
+                                      row_offset=t * SEQ_B)
+            c = update.signed_streams(8, drv[t], gain, 10,
+                                      row_offset=t * SEQ_B)
+            acc = kp.pulse_counts(r.reshape(-1, rows).contiguous(),
+                                  c.reshape(-1, cols).contiguous(), acc)
+        r = update.signed_streams(7, err.reshape(-1, rows), gain, 10)
+        c = update.signed_streams(8, drv.reshape(-1, cols), gain, 10)
+        r, c = r.reshape(-1, rows).contiguous(), c.reshape(-1, cols
+                                                           ).contiguous()
+        case = f"LSTM {name} 34 x B=8, BL=10"
+        ok &= _count_check(results, "pulse_counts", case + " accumulated",
+                           *acc, *kp.pulse_counts(r, c))
+        ok &= _count_check(results, "pulse_counts", case, *acc,
+                           *kp.pulse_counts_plain(r, c))
+    check(ok, "a kernel disagrees with its plain version at the recurrent "
+          "shapes")
+
+
+def _seq_build(kind, policy, device=None):
+    """``launch.train.build`` at the trainer's full width, ``policy``
+    train_sequence's policy arguments."""
+    from repro_torch.launch import train as tl
+    kw = dict(analog=False, analog_policy=None, bm_mode="iterative",
+              use_pallas=False, fuse_bwd_update=False)
+    return tl.build(kind, batch=SEQ_B, seq=SEQ_SEQ, smoke=False, lr=0.01,
+                    time_chunk=1, seed=0,
+                    device=DEV if device is None else device,
+                    **dict(kw, **policy))
+
+
+def _leaves(params):
+    from repro_torch.optim import optimizers
+    return [t.detach() for t, _ in optimizers.leaves(params)]
+
+
+def seq_train(label, kind, policy, results):
+    """The main path: one epoch of ``launch.train.train_sequence`` at full
+    width (25 steps and one evaluation) under ``engine="python"`` and under
+    ``engine="scan"`` from the same seed; the launch counters set to 0
+    before each run and read after it; no plain-version call; every tile
+    and the accuracy bitwise equal."""
+    import torch
+    from repro_torch.core import management
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_sequence
+    runs = {}
+    for engine in ("python", "scan"):
+        with _PlainCalls() as plain, management.count_retries(DEV) as n:
+            ops.reset_launch_counts()
+            r = train_sequence(kind, steps=1, batch=SEQ_B, seq=SEQ_SEQ,
+                               smoke=False, device=DEV, engine=engine,
+                               return_params=True, verbose=False, **policy)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+        check(plain.calls == 0,
+              f"{label}: {plain.calls} plain-version calls on the card")
+        runs[engine] = dict(result=r, launches=counts, retries=int(n))
+    loop, scan = runs["python"], runs["scan"]
+    equal = [torch.equal(a, b) for a, b in zip(
+        _leaves(loop["result"]["params"]), _leaves(scan["result"]["params"]))]
+    same_acc = loop["result"]["accuracies"] == scan["result"]["accuracies"]
+    print(f"[{label}] train_sequence({kind!r}, {policy}), "
+          f"one epoch of 25 steps at T={SEQ_T}, batch {SEQ_B}: tiles bitwise "
+          f"equal {equal}, accuracy {scan['result']['accuracies']} (equal: "
+          f"{same_acc}); launches python {loop['launches']}, scan "
+          f"{scan['launches']}; retries (evaluation and the scan's warm-up "
+          f"steps included) python {loop['retries']} scan {scan['retries']};"
+          f" steps/s with evaluation and captures: python "
+          f"{loop['result']['steps_per_sec']:.1f}, scan "
+          f"{scan['result']['steps_per_sec']:.1f}")
+    check(all(equal) and same_acc,
+          f"{label}: train_sequence's graphed epoch differs from the loop")
+    missing = [k for k in SEQ_PER_STEP[label] if not scan["launches"].get(k)]
+    check(not missing and scan["launches"].get("key_schedule"),
+          f"{label}: the kernels {missing} of the path never launched")
+    results[f"seq_train_{label}"] = dict(
+        policy=policy, kind=kind, launches=scan["launches"],
+        loop_launches=loop["launches"], tiles_equal=True,
+        accuracies=scan["result"]["accuracies"],
+        steps_per_s={e: runs[e]["result"]["steps_per_sec"] for e in runs},
+        retries={e: runs[e]["retries"] for e in runs})
+
+
+def seq_engine_detail(label, kind, policy, results):
+    """The graphed step of :func:`seq_train` up close: two epochs of each
+    engine from the same tiles (``make_seq_epoch_fn`` against the loop of
+    ``make_seq_step_fn``) under ``management.count_retries``: tiles bitwise
+    after each, the second epoch's retries equal (its 25 replays against
+    25 loop steps), the launches per replay and the captured step's
+    nodes, the time of the first graphed epoch (warm-up step, capture and
+    25 replays) and both engines' steps/s in the second, and one replayed
+    step profiled beside one loop step."""
+    import torch
+    from repro_torch.core import management
+    from repro_torch.train import cnn, engine
+    from repro_torch.utils import prng
+    scfg, p_loop, opt_l, (tok, tgt), _ = _seq_build(kind, policy)
+    _, p_scan, opt_s, _, _ = _seq_build(kind, policy)
+    step = engine.make_seq_step_fn(scfg, opt_l)
+    run = engine.make_seq_epoch_fn(scfg, opt_s, batch=SEQ_B)
+    k_data, k_train = prng.key(3), prng.key(2)
+    loop_n, scan_n = (management.count_retries(DEV) for _ in range(2))
+    secs, counts = [], []
+    with _PlainCalls() as plain:
+        for epoch in (0, 1):
+            with loop_n:
+                t_loop = _timed(lambda: cnn.python_epoch(
+                    step, p_loop, tok, tgt, k_data, k_train, epoch, SEQ_B))
+            with scan_n:
+                t_scan = _timed(lambda: run(p_scan, tok, tgt, k_data,
+                                            k_train, epoch))
+            secs.append((t_loop, t_scan))
+            counts.append((int(loop_n.n), int(scan_n.n)))
+            loop_n.n.zero_()
+            scan_n.n.zero_()
+            equal = all(torch.equal(a, b) for a, b in zip(
+                _leaves(p_loop), _leaves(p_scan)))
+            check(equal, f"{label}: graphed epoch {epoch} differs from the "
+                  "loop")
+    check(plain.calls == 0, f"{plain.calls} plain-version calls on the card")
+    prog = run.program
+    spe = prog.spe
+    per_replay = dict(SEQ_PER_STEP[label], key_schedule=1)
+    (loop0, scan0), (loop1, scan1) = counts
+    rate = {"python": spe / secs[1][0], "scan": spe / secs[1][1]}
+    print(f"[{label}_engine] {spe}-step epochs: tiles bitwise equal after "
+          f"each; first graphed epoch (warm-up step, capture, {spe} "
+          f"replays) {secs[0][1]:.2f}s against the loop's {secs[0][0]:.2f}s;"
+          f" second epoch python {rate['python']:.1f} steps/s, scan "
+          f"{rate['scan']:.1f} steps/s; per replay {prog.captured}; "
+          f"retries epoch 1 loop {loop0} / graph {scan0} (its warm-up step "
+          f"included), epoch 2 loop {loop1} / graph {scan1}")
+    check(prog.captured == per_replay, f"{label}: the capture recorded "
+          f"{prog.captured}, expected {per_replay}")
+    check(loop1 == scan1, f"{label}: {scan1} retries in the graph's epoch, "
+          f"{loop1} in the loop's")
+    if "noisy_read" in per_replay:
+        check(scan1 > 0, f"{label}: no read retried (the check sees none)")
+    tape = prog.tape
+    n_keys, n_seeds = len(tape.recorded[0]), len(tape.recorded[2])
+    census = _graph_census(prog.graph,
+                           ROOT / "build" / "graphs" / f"{label}.dot")
+    nodes = sum(census.values())
+    print(f"[{label}_engine] key tape: {n_keys} derivations of "
+          f"{len(tape.keys) - 1}, {n_seeds} seeds; captured step's nodes "
+          f"({nodes}): {census}")
+    check(census["key_schedule"] == 1
+          and census["raw_read"] == per_replay.get("noisy_read", 0)
+          and census["pulse_counts"] == per_replay.get("pulse_counts", 0),
+          f"{label}: the captured step holds {census}")
+    prog.ctr.copy_(torch.tensor([0, 2 * spe]))
+    replay = _profile_step(prog.run, f"one replayed {label} step")
+    loop = _profile_step(
+        lambda: step(p_loop, tok[:SEQ_B], tgt[:SEQ_B],
+                     prng.fold_in(k_train, 10 ** 6)),
+        f"one {label} loop step")
+    results[f"seq_engine_{label}"] = dict(
+        policy=policy, kind=kind, per_replay=prog.captured,
+        graph_nodes=census, nodes=nodes,
+        key_tape=dict(derivations=n_keys, seeds=n_seeds),
+        first_epoch_s=dict(python=secs[0][0], scan=secs[0][1]),
+        rates=rate, retries=counts, replayed_step=replay, loop_step=loop)
+
+
+def seq_step_vs_cpu(results):
+    """One full-width SEQ_FUSED LSTM step on the card against the plain
+    CPU step on the same parameters, tokens and key: the logits within
+    SEQ_ACT_ATOL, the updated tiles by r2's rule."""
+    import torch
+    from repro_torch.recurrent import model as seq_model
+    from repro_torch.train import engine
+    from repro_torch.utils import prng
+    out = {}
+    for dev in ("cpu", DEV):
+        scfg, params, opt, (tok, tgt), _ = _seq_build(
+            "lstm", dict(analog_policy=SEQ_FUSED), device=dev)
+        key = prng.key(8)
+        with torch.no_grad():
+            logits = seq_model.apply(params, tok[:SEQ_B], key, scfg).cpu()
+        engine.make_seq_step_fn(scfg, opt)(params, tok[:SEQ_B],
+                                           tgt[:SEQ_B], key)
+        out[dev] = logits, [t.cpu() for t in _leaves(params)]
+    lerr = float((out["cpu"][0] - out[DEV][0]).abs().max())
+    ok = lerr <= SEQ_ACT_ATOL
+    rows = []
+    for a, b in zip(out["cpu"][1], out[DEV][1]):
+        diff = (a - b).abs()
+        rows.append(dict(share=float((diff > STEP_W_ATOL).float().mean()),
+                         max=float(diff.max())))
+        ok &= rows[-1]["share"] <= STEP_W_SHARE and \
+            rows[-1]["max"] <= STEP_W_MAX
+    print(f"[seq_reference] SEQ_FUSED LSTM step (T={SEQ_T}, batch {SEQ_B}),"
+          f" card vs CPU: logits max|diff| {lerr:.2e} (tol {SEQ_ACT_ATOL}), "
+          "tiles wx, wh, readout: " + ", ".join(
+              f"{r['share']:.1e} of entries > 1e-6, max {r['max']:.1e}"
+              for r in rows))
+    results["seq_step_reference"] = dict(logit_err=lerr, tiles=rows, ok=ok)
+    check(ok, "the card's LSTM step disagrees with the CPU step")
+
+
+def lstm_figure(results):
+    """The recurrent sequel's figure (``benchmarks/lstm_management.py``) at
+    its protocol, seeds 0-2, on the kernels: every curve's pair inside the
+    JAX seed bands and the paper's verdict at every seed."""
+    from repro_torch.benchmarks import lstm_management as lm
+    with _PlainCalls() as plain:
+        t0 = time.perf_counter()
+        res = lm.run_lstm_management(**lm.PROTOCOL, seeds=(0, 1, 2),
+                                     device=DEV)
+        dt = time.perf_counter() - t0
+    for line in lm.report_lstm_management(res):
+        print(f"[lstm_figure] {line}")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "lstm_management.json").write_text(json.dumps(res, indent=1))
+    print(f"[lstm_figure] 9 runs in {dt:.1f}s; steps/s (training, "
+          f"evaluation and captures) {res['steps_per_sec']}")
+    results["lstm_figure"] = dict(
+        curves=res["curves"], steps_per_s=res["steps_per_sec"], seconds=dt,
+        bands=lm.band_verdicts(res), verdict=lm.verdict(res),
+        policies=res["policies"])
+    check(plain.calls == 0, f"{plain.calls} plain-version calls on the card")
+    check(lm.passed(res), "the LSTM figure misses a JAX band or the paper's "
+          "verdict")
+
+
+def recurrent(results):
+    seq_kernels_vs_plain(results)
+    for label, kind, policy in SEQ_RUNS:
+        seq_train(label, kind, policy, results)
+    for label, kind, policy in SEQ_RUNS[:2]:
+        seq_engine_detail(label, kind, policy, results)
+    seq_step_vs_cpu(results)
+    lstm_figure(results)
+
+
+# ---------------------------------------------------------------------------
 # (e) training kernels: times against bound, plain version and PyTorch
 # ---------------------------------------------------------------------------
 
@@ -2850,6 +3211,70 @@ def training_kernel_times(results):
                   4.0 * t * m * n)
 
 
+def seq_kernel_times(results):
+    """#1 and #2 at the full-width LSTM's reads (wx 128x9 and wh 128x32 at
+    B 8, the readout 8x33 over 272 rows; forward and transpose), #6 at wx
+    and wh (B 8, BL 10) and #4 at one timestep's counts (8 x 10 slots)."""
+    import torch
+    from repro_torch.kernels import bwd_update_mvm as kb
+    from repro_torch.kernels import managed_mvm as km
+    from repro_torch.kernels import noisy_mvm as kn
+    from repro_torch.kernels import pulse_update as kp
+
+    rows = results["times"]
+    g = torch.Generator(device=DEV).manual_seed(990)
+    for name, r, c, batches in SEQ_TILES:
+        b = batches[0]
+        w = torch.randn(r, c, generator=g, device=DEV) * c ** -0.5
+        for tr in (False, True):
+            k, n_out = (r, c) if tr else (c, r)
+            x = torch.randn(b, k, generator=g, device=DEV)
+            nm_s = x.abs().amax(1, keepdim=True)
+            kw = dict(sigma=SIGMA, alpha=2.0, transpose=tr)
+            mkw = dict(kw, two_phase=True, retry_scale=16.0)
+            shape = f"LSTM {name}{'T' if tr else ''} B={b}"
+            byts = 4 * (w.numel() + x.numel() + b * n_out) + b
+            flops = 2.0 * b * k * n_out
+            lib = lambda: torch.matmul(x, w if tr else w.T)  # noqa: E731
+            _time_row(rows, "noisy_mvm", shape,
+                      lambda: kn.noisy_mvm(w, x, 1, **kw),
+                      lambda: kn.noisy_mvm_plain(w, x, 1, **kw), lib,
+                      byts, flops, 0.0, batch=b)
+            _time_row(rows, "managed_mvm", shape,
+                      lambda: km.managed_mvm(w, x, nm_s, (1, 2), **mkw),
+                      lambda: km.managed_mvm_plain(w, x, nm_s, (1, 2),
+                                                   **mkw), lib,
+                      byts + 4 * b, 2 * flops, 0.0, batch=b)
+    gains = torch.tensor([1.0, 1.0], device=DEV)
+    bl, b = 10, SEQ_B
+    for name, r, c, _ in SEQ_TILES[:2]:
+        w = torch.randn(r, c, generator=g, device=DEV) * r ** -0.5
+        x = torch.randn(b, c, generator=g, device=DEV)
+        dd = torch.randn(b, r, generator=g, device=DEV)
+        nm_s = dd.abs().amax(1, keepdim=True)
+        sa = (torch.rand(b * bl, c, device=DEV) < 0.5).float()
+        sb = (torch.rand(b * bl, r, device=DEV) < 0.5).float()
+        bkw = dict(sigma=SIGMA, alpha=2.0, two_phase=True, bl=bl)
+        _time_row(
+            rows, "bwd_update_mvm", f"LSTM {name} BL=10",
+            lambda: kb.bwd_update_mvm(w, dd, x, nm_s, (1, 2), (3, 4, 264),
+                                      gains, **bkw),
+            lambda: kb.bwd_update_mvm_plain(w, dd, x, nm_s, (1, 2),
+                                            (3, 4, 264), gains, **bkw),
+            lambda: (torch.matmul(dd, w), torch.matmul(sb.T, sa),
+                     torch.matmul(sb.abs().T, sa.abs())),
+            4 * (w.numel() + dd.numel() + x.numel() + b + 2 + 2 * w.numel()),
+            4.0 * b * r * c, 4.0 * b * bl * r * c)
+        rws, cls = _streams(g, b * bl, r, c)
+        _time_row(rows, "pulse_counts", f"LSTM {name} BL=10 one timestep",
+                  lambda: kp.pulse_counts(rws, cls),
+                  lambda: kp.pulse_counts_plain(rws, cls),
+                  lambda: (torch.matmul(rws.T, cls),
+                           torch.matmul(rws.abs().T, cls.abs())),
+                  4 * (b * bl * (r + c) + 2 * r * c), 0.0,
+                  4.0 * b * bl * r * c)
+
+
 def slice3_kernel_times(results):
     """Flash attention at qwen3's prefill shape (float32: the analog path;
     bfloat16: the digital one) and the fused update at the f5 shapes."""
@@ -2933,6 +3358,21 @@ def summary_line(results):
             kernels[-1]["launches_grid"] = {
                 name: results[f"engine_{name}"]["launches"][meta["kind"]]
                 for name in GRID_STEPS}
+        if meta["kind"] in ("noisy_read", "managed_read", "pulse_counts",
+                            "bwd_update", "key_schedule"):
+            # and in l's one-epoch train_sequence runs (scan engine: warm-up
+            # step, 25 replays and an evaluation), with a time at the
+            # full-width LSTM's shape
+            kernels[-1]["launches_seq"] = {
+                name: results[f"seq_train_{name}"]["launches"][meta["kind"]]
+                for name, _, _ in SEQ_RUNS
+                if results[f"seq_train_{name}"]["launches"].get(meta["kind"])}
+            t = next((r for r in results["times"] if r["kernel"] == kname
+                      and r["shape"].startswith("LSTM")), None)
+            if t is not None:
+                kernels[-1]["seq_time"] = {k: t[k] for k in (
+                    "shape", "batch", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}
         if meta["kind"] in ("noisy_read", "managed_read", "pulse_counts"):
             # and in g4's chunked 20-step epochs (warm-up step included)
             kernels[-1]["launches_stream"] = {
@@ -2960,6 +3400,7 @@ def serve_iterative(results):
 def kernel_times_all(results):
     kernel_times(results)
     training_kernel_times(results)
+    seq_kernel_times(results)
     slice3_kernel_times(results)
 
 
@@ -2991,6 +3432,11 @@ PHASES = [
      kill_and_resume),
     ("r2", "one training step, card vs CPU", step_reference),
     ("e", "kernel times", kernel_times_all),
+    # last: after its profile of a 28k-node replay, the profiler kept no
+    # device record of most of e's kernels (49 of 73 rows, where the
+    # parent's runs lost 0-2)
+    ("l", "the analog LSTM/GRU trainer: graphed steps vs the loop, the "
+     "LSTM figure in its JAX bands", recurrent),
 ]
 
 

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core import analog_linear as core_linear
 from repro_torch.core import conv_mapping as core_conv
+from repro_torch.core import tile as tile_lib
 from repro_torch.core.device import DeviceMaps, RPUConfig
 from repro_torch.utils import prng
 
@@ -119,21 +120,23 @@ class AnalogLinear:
                      ) -> AnalogState:
         """Program a digital dense weight ``w`` (d_in, d_out) — and an
         optional bias ``b`` (d_out,) on the extra input column — onto a
-        tile.  With seeded maps the programming is exact.  ``w.T`` is used
-        as is when it is contiguous (no copy)."""
-        if not cfg.seeded_maps:
-            raise NotImplementedError(
-                "programming digital weights onto materialized device maps "
-                "is not ported yet")
+        tile, as ``init_tile`` programs its own draw: with seeded maps
+        exactly (``w.T`` taken as is when it is contiguous), with
+        materialized maps clipped to each device's own bound."""
         w_phys = w.to(cfg.dtype).T                       # (out, in)
         if b is not None:
             w_phys = torch.cat([w_phys, b.to(cfg.dtype)[:, None]], dim=1)
-        if cfg.devices_per_weight > 1:
-            w_phys = w_phys.repeat(cfg.devices_per_weight, 1)
         meta = AnalogMeta(cfg=cfg, bias=b is not None, kind="linear",
                           label=label)
-        return AnalogState(w_phys.contiguous(), None, init_tile_seed(key),
-                           meta)
+        if cfg.seeded_maps:
+            if cfg.devices_per_weight > 1:
+                w_phys = w_phys.repeat(cfg.devices_per_weight, 1)
+            return AnalogState(w_phys.contiguous(), None,
+                               init_tile_seed(key), meta)
+        w_t, maps, seed = tile_lib.init_tile(
+            key, w_phys.shape[0], w_phys.shape[1], cfg, w_init=w_phys,
+            device=w_phys.device)
+        return AnalogState(w_t, maps, seed, meta)
 
 
 class AnalogConv2d:

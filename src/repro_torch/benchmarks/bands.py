@@ -21,6 +21,13 @@ the seeds:
   pair's delta (the larger of the two runs'), the port's means are in the
   same order; where they differ by less, the port's two means lie within
   that delta of each other.
+
+The recurrent sequel's figure (``benchmarks/lstm_management.py``) is held
+by the same rule: ``jax_lstm_bands.json`` holds the JAX package's three
+copy-task curves at the figure's protocol over ``LSTM_SEEDS``, each seed's
+``mean_last5`` the error ``1 - accuracy`` averaged over the last five
+epochs (:func:`mean_last5_error`), and :data:`LSTM_PAIRS` are its pairs.
+It is written by ``python tests/test_torch_lstm_figure.py --write-bands``.
 """
 
 from __future__ import annotations
@@ -34,8 +41,19 @@ import numpy as np
 from repro_torch.benchmarks import cnn_suite
 
 PATH = Path(__file__).resolve().parent / "jax_bands.json"
+LSTM_PATH = PATH.with_name("jax_lstm_bands.json")
 #: The least half-width of a band, in test error (one percentage point).
 MIN_DELTA = 0.01
+LSTM_SEEDS = (0, 1, 2)
+#: (a, b): FP against managed, managed against unmanaged (1806.00166)
+LSTM_PAIRS = (("fp_digital", "nm_bm_managed"),
+              ("nm_bm_managed", "unmanaged_baseline"))
+
+
+def mean_last5_error(accuracies: Sequence[float]) -> float:
+    """A copy-task curve's band value: ``1 - accuracy`` averaged over its
+    last five epochs."""
+    return float(np.mean([1.0 - a for a in accuracies[-5:]]))
 
 
 def load(path: Path = PATH) -> Dict:

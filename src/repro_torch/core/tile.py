@@ -49,18 +49,21 @@ def _grid_routed(cfg: RPUConfig) -> bool:
 
 def init_tile(key: prng.Key, out_features: int, in_features: int,
               cfg: RPUConfig, init_scale: Optional[float] = None, *,
+              w_init: Optional[Tensor] = None,
               device="cpu") -> Tuple[Tensor, Optional[DeviceMaps], prng.Key]:
-    """A new tile ``(w, maps, seed)``: uniform initial weights (within
-    ``+-min(1/sqrt(in), w_bound/2)``) replicated over the #_d device rows,
-    and the device maps sampled from the seed (None with seeded maps, else
-    the weights clipped to each device's own bound)."""
+    """A new tile ``(w, maps, seed)``: the initial weights ``w_init``
+    ``(out, in)``, or uniform ones within ``+-min(1/sqrt(in), w_bound/2)``,
+    replicated over the #_d device rows, and the device maps sampled from
+    the seed (None with seeded maps, else the weights clipped to each
+    device's own bound)."""
     k_w, k_dev = prng.split(key)
-    if init_scale is None:
-        init_scale = min(1.0 / (in_features ** 0.5), cfg.w_bound / 2.0)
-    w = torch.from_numpy(prng.uniform(k_w, (out_features, in_features),
-                                      -init_scale, init_scale))
-    w = w.to(device=device, dtype=cfg.dtype).repeat(cfg.devices_per_weight,
-                                                    1)
+    if w_init is None:
+        if init_scale is None:
+            init_scale = min(1.0 / (in_features ** 0.5), cfg.w_bound / 2.0)
+        w_init = torch.from_numpy(prng.uniform(
+            k_w, (out_features, in_features), -init_scale, init_scale))
+    w = w_init.to(device=device, dtype=cfg.dtype).repeat(
+        cfg.devices_per_weight, 1)
     maps = None
     if not cfg.seeded_maps:
         maps = sample_device_maps(k_dev, w.shape[0], w.shape[1], cfg,

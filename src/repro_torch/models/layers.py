@@ -40,9 +40,12 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
     return {"w": w.T}
 
 
-def dense_apply(p: Params, x: Tensor, *, key=None) -> Tensor:
+def dense_apply(p: Params, x: Tensor, *, key=None, lr=1.0) -> Tensor:
+    """``x @ w (+ b)``, or the analog tile's read; ``lr`` sets an analog
+    tile's pulse gains in its update cycle."""
     if isinstance(p, AnalogState):
-        return AnalogLinear.apply(p, x.to(torch.float32), key).to(x.dtype)
+        return AnalogLinear.apply(p, x.to(torch.float32), key,
+                                  lr=lr).to(x.dtype)
     y = x @ p["w"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)

@@ -37,7 +37,15 @@ records one launch per chunk (and, under iterative BM, each chunk's
 predicated retries), and the graph's private memory pool reuses one
 chunk's buffers for the next.  A chunked epoch gives the bits of the
 materialized one under BM off and two-phase BM.
-The data-parallel split and the sequence engines are not ported.
+
+The sequence engines (``make_seq_step_fn`` :264, ``make_seq_epoch_fn``
+:284, ``make_seq_eval_fn`` :321) run the copy-task LSTM/GRU of
+``repro_torch.recurrent`` on the same graphed step: the cell's time loop
+is a host loop, so the captured step records every timestep's reads, the
+backward sweep's transpose reads and count launches (``row_offset = t *
+B``) and each tile's one finalize; under iterative BM every managed read
+of every timestep takes the predicated retries.
+The data-parallel split is not ported.
 """
 
 from __future__ import annotations
@@ -202,17 +210,32 @@ class _EpochStep(_Graphed):
         return loss
 
 
-def _signature(params: Params, xs: torch.Tensor, ys: torch.Tensor):
-    """What a captured step bakes in: the tiles' storage and the split's
-    shape, type and device."""
-    return (tuple((params[n].w.data_ptr(), id(params[n].maps))
-                  for n in lenet.LAYERS), tuple(xs.shape), xs.dtype,
-            tuple(ys.shape), ys.dtype, xs.device)
+def _nodes(tree):
+    """The tiles and plain tensors of a parameter tree, in key order."""
+    if isinstance(tree, (AnalogState, torch.Tensor)):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _nodes(v)
 
 
-def _copies(params: Params) -> Params:
-    return {n: AnalogState(p.w.detach().clone(), p.maps, p.seed, p.meta)
-            for n, p in params.items()}
+def _signature(params, xs: torch.Tensor, ys: torch.Tensor):
+    """What a captured step bakes in: the tiles' and tensors' storage and
+    the split's shape, type and device."""
+    return (tuple((n.w.data_ptr(), id(n.maps)) if isinstance(n, AnalogState)
+                  else n.data_ptr() for n in _nodes(params)),
+            tuple(xs.shape), xs.dtype, tuple(ys.shape), ys.dtype, xs.device)
+
+
+def _copies(tree):
+    """The parameter tree with every trained tensor cloned (maps, seeds and
+    metadata shared)."""
+    if isinstance(tree, AnalogState):
+        return AnalogState(tree.w.detach().clone(), tree.maps, tree.seed,
+                           tree.meta)
+    if isinstance(tree, dict):
+        return {k: _copies(v) for k, v in tree.items()}
+    return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def make_cnn_epoch_fn(cfg: lenet.LeNetConfig, opt: Optional[Callable] = None,
@@ -227,10 +250,14 @@ def make_cnn_epoch_fn(cfg: lenet.LeNetConfig, opt: Optional[Callable] = None,
     whose nodes ``program.graph.debug_dump`` writes as a DOT file, the
     launches per replay by kind, tape, counter and buffers).  A replay adds
     its launches to ``ops.launch_counts``."""
-    step = make_cnn_step_fn(cfg, opt)
+    return _epoch_fn(make_cnn_step_fn(cfg, opt), batch)
 
-    def run_epoch(params: Params, xs: torch.Tensor, ys: torch.Tensor,
-                  k_data: prng.Key, k_train: prng.Key, epoch: int) -> Params:
+
+def _epoch_fn(step: Callable, batch: int) -> Callable:
+    """The graphed epoch of ``step(params, x, y, key)`` over a split."""
+
+    def run_epoch(params, xs: torch.Tensor, ys: torch.Tensor,
+                  k_data: prng.Key, k_train: prng.Key, epoch: int):
         sig = _signature(params, xs, ys)
         prog = run_epoch.program
         new = prog is None or run_epoch.sig != sig
@@ -304,6 +331,96 @@ def make_cnn_eval_fn(cfg: lenet.LeNetConfig, *, batch: int = 256
         for _ in range(prog.nb):
             prog.run()
         return 1.0 - float(prog.correct) / xs.shape[0]
+
+    evaluate.program = evaluate.sig = None
+    return evaluate
+
+
+# ---------------------------------------------------------------------------
+# The recurrent (sequence) engines: the cell's time loop inside the step
+# ---------------------------------------------------------------------------
+
+def make_seq_step_fn(cfg, opt: Callable) -> Callable:
+    """``step(params, tokens, targets, key)``: one sequence-model step
+    (``repro_torch.recurrent.model``) in place, ``opt(params, grads)``
+    (``optimizers.mixed_analog``) with the gradients of the tree's
+    ``optimizers.leaves``; returns the summed loss (a device scalar).  The
+    backward runs the cell's temporal-reuse cycles: per-timestep transpose
+    reads, counts accumulated across the sequence, ONE ``finalize_counts``
+    per tile."""
+    from repro_torch.recurrent import model as seq_model
+
+    def step(params, tokens, targets, key):
+        ws = [t.requires_grad_() for t, _ in optimizers.leaves(params)]
+        loss = seq_model.loss_fn(params, tokens, targets, key, cfg)
+        opt(params, torch.autograd.grad(loss, ws))
+        return loss.detach()
+
+    return step
+
+
+def make_seq_epoch_fn(cfg, opt: Callable, *, batch: int) -> Callable:
+    """``run_epoch(params, tokens, targets, k_data, k_train, epoch)``: one
+    epoch of the sequence trainer on the graphed step (as
+    :func:`make_cnn_epoch_fn`): ``len(tokens) // batch`` steps, shuffled by
+    :func:`epoch_permutation`, step ``s`` under ``fold_in(k_train, epoch *
+    spe + s)``, one CUDA graph replay each on a card."""
+    return _epoch_fn(make_seq_step_fn(cfg, opt), batch)
+
+
+class _SeqEvalStep(_Graphed):
+    def __init__(self, cfg, tokens, targets, batch):
+        super().__init__(tokens.device)
+        self.cfg, self.batch = cfg, batch
+        n = tokens.shape[0]
+        self.nb = -(-n // batch)
+        pad = self.nb * batch - n
+        self.tokens = torch.cat([tokens, tokens.new_zeros(
+            (pad, tokens.shape[1]))])
+        # padded rows carry all-IGNORE targets: they add no answer span
+        self.targets = torch.cat([targets, targets.new_full(
+            (pad, targets.shape[1]), -1)])
+        self.advance = torch.tensor([1, batch], device=self.device)
+        self.counts = torch.zeros(2, device=self.device)
+
+    def body(self, params, root):
+        from repro_torch.recurrent import model as seq_model
+        i = self.ctr[:1]
+        pick = lambda t: t.view(self.nb, self.batch,  # noqa: E731
+                                -1).index_select(0, i)[0]
+        with torch.no_grad():
+            logits = seq_model.apply(params, pick(self.tokens), root,
+                                     self.cfg)
+            self.counts.add_(torch.stack(seq_model.hits(
+                logits, pick(self.targets))))
+        self.ctr.add_(self.advance)
+        return self.counts
+
+
+def make_seq_eval_fn(cfg, *, batch: int = 256) -> Callable:
+    """``evaluate(params, tokens, targets, key) -> accuracy``: answer-span
+    accuracy over a token split padded to a batch multiple (zero tokens,
+    all-IGNORE targets), batch ``i`` read under ``fold_in(key, i *
+    batch)`` (the JAX package's schedule), one graph replay per batch;
+    inference runs the same noisy analog forward as training."""
+
+    def evaluate(params, tokens: torch.Tensor, targets: torch.Tensor,
+                 key: prng.Key) -> float:
+        sig = _signature(params, tokens, targets)
+        prog = evaluate.program
+        if prog is None or evaluate.sig != sig:
+            prog = _SeqEvalStep(cfg, tokens, targets, batch)
+            prog.build(params, params)
+            evaluate.program, evaluate.sig = prog, sig
+        else:
+            prog.tokens[:tokens.shape[0]].copy_(tokens)
+            prog.targets[:targets.shape[0]].copy_(targets)
+        prog.base.copy_(torch.tensor(key, dtype=torch.int64))
+        prog.ctr.zero_()
+        prog.counts.zero_()
+        for _ in range(prog.nb):
+            prog.run()
+        return float(prog.counts[0] / torch.clamp_min(prog.counts[1], 1.0))
 
     evaluate.program = evaluate.sig = None
     return evaluate

@@ -40,6 +40,7 @@ is numpy's, so a draw agrees with ``jax.random.normal`` to 2 ulp.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -287,3 +288,16 @@ def normal(k: Key, shape: Sequence[int], *, device="cpu") -> torch.Tensor:
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     z = np.float32(np.sqrt(2.0)) * _erfinv32(uniform(k, shape, lo, 1.0))
     return torch.from_numpy(np.ascontiguousarray(z, np.float32)).to(device)
+
+
+def truncated_normal(k: Key, lower: float, upper: float,
+                     shape: Sequence[int]) -> np.ndarray:
+    """``jax.random.truncated_normal`` in float32: ``sqrt(2) * erfinv(u)``
+    with ``u`` uniform between ``erf(lower / sqrt(2))`` and ``erf(upper /
+    sqrt(2))``, clipped into the open interval ``(lower, upper)``."""
+    f32 = np.float32
+    sqrt2 = f32(np.sqrt(2.0))
+    a, b = (f32(math.erf(float(f32(v) / sqrt2))) for v in (lower, upper))
+    z = (sqrt2 * _erfinv32(uniform(k, shape, a, b))).astype(f32)
+    return np.clip(z, np.nextafter(f32(lower), f32(np.inf)),
+                   np.nextafter(f32(upper), f32(-np.inf)))

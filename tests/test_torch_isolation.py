@@ -60,3 +60,15 @@ def test_covers_every_package_of_the_port():
 def test_walks_the_tile_grid():
     """The crossbar tile grid module (core/tile_grid.py) is walked."""
     assert ROOT / "src" / "repro_torch" / "core" / "tile_grid.py" in FILES
+
+
+def test_walks_the_recurrent_cells_and_the_entry_points():
+    """The recurrent package, the sequence data, the LSTM figure and the
+    training and serving entry points are walked."""
+    walked = {(p.parent.name, p.name) for p in FILES}
+    assert {("recurrent", n) for n in ("__init__.py", "cell.py",
+                                       "temporal.py", "oracle.py",
+                                       "model.py")} <= walked
+    assert {("launch", "train.py"), ("launch", "serve.py"),
+            ("data", "sequences.py"),
+            ("benchmarks", "lstm_management.py")} <= walked

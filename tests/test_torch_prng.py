@@ -118,3 +118,19 @@ def test_normal_offset_total_chunks():
         want = jfastrng.normal(jk, (3, 40), offset=r0 * 40, total=12 * 40)
         np.testing.assert_allclose(chunk.numpy(), np.asarray(want), rtol=0,
                                    atol=NORMAL_ATOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("bounds", [(-2.0, 2.0), (-1.0, 3.0)],
+                         ids=["-2..2", "-1..3"])
+def test_truncated_normal_matches_jax(seed, bounds):
+    """``jax.random.truncated_normal`` (the readout's init in the JAX
+    package's ``dense_init``): within NORMAL_ATOL (the erf of the bounds
+    in float64, XLA's float32 erfinv) and inside the open interval."""
+    lo, hi = bounds
+    got = prng.truncated_normal(prng.key(seed), lo, hi, (33, 77))
+    want = np.asarray(jax.random.truncated_normal(
+        jax.random.key(seed), lo, hi, (33, 77), jax.numpy.float32))
+    assert got.dtype == np.float32 and got.shape == (33, 77)
+    np.testing.assert_allclose(got, want, rtol=0, atol=NORMAL_ATOL)
+    assert (got > lo).all() and (got < hi).all()
