@@ -155,6 +155,20 @@ Phases, each of which makes the script exit non-zero when it fails:
       (bfloat16) prefill;
   (r3) the qwen3 smoke model on the card against the CPU with the flash
       kernel off and on: equal greedy tokens, logits within 1e-4;
+  (t) the analog LM trainer (``repro_torch.train.lm``, the engine's
+      ``scan_steps``, ``launch/train.py``): #1 and #2 at the LM step's
+      reads (1016 rows: q 4096x4097, wg 11008x4097, wo 4096x11009 and the
+      unembed 102400x4097, forward and transposed, 2 to 25 contraction
+      segments), #6 at q and wo and #4 at wg's and the unembed's counts
+      (1016 slots) against their plain versions; the full-width
+      deepseek_7b cut to 4 layers (batch 8, seq 128) under FUSED_LM and
+      ITERATIVE_LM: 3 loop steps and 3 graphed steps from the same
+      weights, params, AdamW state and losses bitwise, the launches per
+      replay against the count the code gives, the captured step's nodes,
+      both engines' steps/s, a replayed step's profile and the peak
+      memory; the CLI entry ``train("deepseek_7b", smoke=True)`` for 20
+      steps; and ``benchmarks/analog_lm_convergence.py`` at seeds 0-2
+      against the JAX rule ``a1 < 0.85 a0`` and the JAX seed bands;
   (e) each kernel's time against its bound, its plain version and one
       PyTorch call on the same shapes (yardstick only): ``torch.matmul``
       for the reads and the count products, ``F.conv2d`` for the conv read,
@@ -3091,6 +3105,427 @@ def recurrent(results):
 
 
 # ---------------------------------------------------------------------------
+# (t) the analog LM trainer at full width
+# ---------------------------------------------------------------------------
+
+# full-width deepseek_7b (d 4096, d_ff 11008, vocab 102400) cut to 4 layers:
+# the tiles, their w_bar and the embed's AdamW moments of 30 layers pass
+# 60 GB before the finalize's temporaries
+LM_LAYERS, LM_B, LM_S, LM_STEPS = 4, 8, 128, 3
+LM_TIMED = 2                     # steps of each engine timed after those
+LM_ROWS = LM_B * (LM_S - 1)      # 1016 rows a read: tokens[:, :-1]
+FUSED_LM = "lm_managed:use_pallas=true:bm_mode=two_phase:fuse_bwd_update=true"
+ITERATIVE_LM = "lm_managed:use_pallas=true"
+LM_POLICIES = (("lm_fused", FUSED_LM), ("lm_iterative", ITERATIVE_LM))
+# (name, rows, cols) of the LM's tiles (a bias column on every one)
+LM_TILES = [("q", 4096, 4097), ("wg", 11008, 4097), ("wo", 4096, 11009),
+            ("unembed", 102400, 4097)]
+LM_CLI_POLICY = "*attn*=managed,*mlp*=rpu_baseline"
+ARRAY = 4096                     # max_array_rows = max_array_cols
+
+
+def _n_seg(k):
+    return -(-k // ARRAY)
+
+
+def lm_per_step(cfg, policy):
+    """The analog launches one graphed LM step makes, from the code's
+    routes: every block's 7 tiles read forward twice under remat (the
+    forward and its recompute), the unembed once; the transpose reads and
+    updates once per tile; a tile of at most 4096 rows takes the fused #6
+    under ``fuse_bwd_update`` (q, k, v, o, wo), the others #2 transposed
+    and #4 (wg, wi, unembed); under iterative BM a managed read is a first
+    raw read and ``bm_max_iters`` predicated retries."""
+    from repro_torch.analog.presets import parse_policy
+    rpu = parse_policy(policy).rules[0].cfg
+    n = cfg.n_layers
+    fwd = 7 * n * (2 if cfg.remat else 1) + 1
+    fused = 5 * n if rpu.fuse_bwd_update else 0
+    separate = 7 * n + 1 - fused
+    if rpu.bm_mode == "iterative":
+        return {"noisy_read": (rpu.bm_max_iters + 1) * (fwd + separate),
+                "pulse_counts": separate}
+    out = {"managed_read": fwd + separate, "pulse_counts": separate}
+    if fused:
+        out["bwd_update"] = fused
+    return out
+
+
+def lm_kernels_vs_plain(results):
+    """#1 and #2 at the LM step's reads (1016 rows: every tile forward and
+    transposed, contractions in 2, 3 and 25 segments), #6 at q and wo
+    (1016 rows, BL 1) and #4 at wg's and the unembed's counts (1016 slots)
+    against their plain versions: reads within 1e-5 of the largest sum
+    |x||w| with equal flags, counts bitwise."""
+    import torch
+    from repro_torch.core import update
+    from repro_torch.kernels import bwd_update_mvm as kb
+    from repro_torch.kernels import managed_mvm as km
+    from repro_torch.kernels import noisy_mvm as kn
+    from repro_torch.kernels import pulse_update as kp
+
+    ok, seed = True, 1500
+    b = LM_ROWS
+    for name, rows, cols in LM_TILES:
+        for tr in (False, True):
+            seed += 1
+            g = torch.Generator(device=DEV).manual_seed(seed)
+            k = rows if tr else cols
+            w = (torch.randn(rows, cols, generator=g, device=DEV)
+                 * k ** -0.5).contiguous()
+            x = _scaled_rows(g, b, k)
+            case = f"LM {name} {rows}x{cols}{' T' if tr else ''} B={b} " \
+                   f"n_seg={_n_seg(k)}"
+            mag = float((x.abs() @ (w.abs() if tr else w.abs().T)).max())
+            kw = dict(sigma=SIGMA, alpha=ALPHA, transpose=tr,
+                      n_seg=_n_seg(k))
+            y, s = kn.noisy_mvm(w, x, 0xA11 + seed, **kw)
+            yp, sp = kn.noisy_mvm_plain(w, x, 0xA11 + seed, **kw)
+            ok &= _read_check(results, "noisy_mvm", case, y, yp, s, sp, mag)
+            del y, s, yp, sp
+            nm_s = x.abs().amax(1, keepdim=True)
+            mkw = dict(kw, two_phase=True, retry_scale=16.0)
+            y, s = km.managed_mvm(w, x, nm_s, (seed, 91), **mkw)
+            yp, sp = km.managed_mvm_plain(w, x, nm_s, (seed, 91), **mkw)
+            ok &= _read_check(results, "managed_mvm", f"{case} nm=1", y, yp,
+                              s, sp, mag)
+            del y, s, yp, sp, w, x
+    gains = torch.tensor([0.9, 1.2], device=DEV)
+    for name, rows, cols in (LM_TILES[0], LM_TILES[2]):
+        seed += 1
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        w = (torch.randn(rows, cols, generator=g, device=DEV)
+             * rows ** -0.5).contiguous()
+        x = _scaled_rows(g, b, cols, (1.0,))
+        dd = _scaled_rows(g, b, rows)
+        nm_s = dd.abs().amax(1, keepdim=True)
+        ok &= _fused_checks(
+            results, "bwd_update_mvm", f"LM {name} {rows}x{cols} B={b}",
+            [(dd, nm_s, (71, 72), (81, 82, 0), "")],
+            lambda d_, n_, rs, us, **kw: kb.bwd_update_mvm(
+                w, d_, x, n_, rs, us, gains, **kw),
+            lambda d_, n_, rs, us, **kw: kb.bwd_update_mvm_plain(
+                w, d_, x, n_, rs, us, gains, **kw),
+            w, dict(sigma=SIGMA, alpha=ALPHA, two_phase=True, bl=1))
+        del w, x, dd
+    gain = torch.tensor(0.7, device=DEV)
+    for name, rows, cols in (LM_TILES[1], LM_TILES[3]):
+        seed += 1
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        r = update.signed_streams(seed, torch.randn(
+            b, rows, generator=g, device=DEV), gain, 1).reshape(b, rows)
+        c = update.signed_streams(seed + 1, torch.randn(
+            b, cols, generator=g, device=DEV), gain, 1).reshape(b, cols)
+        up, dn = kp.pulse_counts(r.contiguous(), c.contiguous())
+        upp, dnp = kp.pulse_counts_plain(r.contiguous(), c.contiguous())
+        ok &= _count_check(results, "pulse_counts",
+                           f"LM {name} {rows}x{cols} {b} slots BL=1", up, dn,
+                           upp, dnp)
+        del r, c, up, dn, upp, dnp
+        _free()
+    check(ok, "a kernel disagrees with its plain version at the LM "
+          "training shapes")
+
+
+def _lm_tree_leaves(*trees):
+    """The tensors of param and optimizer-state trees, in key order."""
+    import torch
+    from repro_torch.optim import optimizers
+    out = []
+    for tree in trees:
+        optimizers.tree_map(lambda t: out.append(t) if isinstance(
+            t, torch.Tensor) else None, tree)
+    return out
+
+
+def _lm_state(policy):
+    """The full-width 4-layer deepseek_7b under ``policy``: ``(cfg, step,
+    opt, params, opt_state)`` on the card, weights from seed 0."""
+    import dataclasses as dc
+    from repro_torch.launch import train as tl
+    from repro_torch.train import lm
+    cfg = dc.replace(tl.lm_config("deepseek_7b", smoke=False,
+                                  analog_policy=policy), n_layers=LM_LAYERS)
+    opt = lm.default_optimizer(cfg)
+    params, state = lm.init_train_state(0, cfg, opt, device=DEV)
+    return cfg, opt, params, state
+
+
+def _lm_batches(cfg, start, n):
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import SyntheticTokenSource, \
+        TokenPipelineConfig
+    src = SyntheticTokenSource(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=LM_S, global_batch=LM_B, seed=0))
+    return torch.from_numpy(np.stack([src.batch_at(i)
+                                      for i in range(start, start + n)]))
+
+
+def lm_train(label, policy, results):
+    """The main path: ``train/lm.py``'s step on the full-width 4-layer
+    deepseek_7b, ``LM_STEPS`` steps through the loop (``make_train_step``,
+    host keys ``fold_in(key(1), s)``) and through the engine
+    (``make_scan_train_step``: one CUDA graph replay per step) from the
+    same weights; launch counters set to 0 before each and read after
+    it; no plain-version call; params, optimizer state and losses bitwise
+    equal; the launches per replay against :func:`lm_per_step`; the
+    captured step's nodes; the loop's steps/s over its steps after the
+    first and the engine's over ``LM_TIMED`` more replays; one replay
+    profiled; the peak memory of the loop steps and of the capture with its
+    replays."""
+    import math
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train import lm
+    from repro_torch.utils import prng
+
+    _free()
+    key_base = prng.key(1)
+    cfg, opt, p_loop, s_loop = _lm_state(policy)
+    step, _ = lm.make_train_step(cfg, opt)
+    toks = _lm_batches(cfg, 0, LM_STEPS + LM_TIMED)
+    launches, mem, secs = {}, {}, {}
+    with _PlainCalls() as plain:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        loop_losses, loop_s = [], []
+        for i in range(LM_STEPS):
+            t0 = time.perf_counter()
+            _, _, m = step(p_loop, s_loop, {"tokens": toks[i].to(DEV)},
+                           prng.fold_in(key_base, i))
+            loop_losses.append(float(m["loss"]))    # synchronises
+            loop_s.append(time.perf_counter() - t0)
+        secs["python_steps"] = loop_s
+        launches["python"] = {k: v for k, v in ops.launch_counts().items()
+                              if v}
+        mem["python_step_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                      - base) / 2 ** 30
+        mem["state_gb"] = base / 2 ** 30
+        _free()                   # the loop's cached blocks, before capture
+        _, _, p_scan, s_scan = _lm_state(policy)
+        multi, _ = lm.make_scan_train_step(cfg, opt)
+        torch.cuda.reset_peak_memory_stats()
+        base2 = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, _, m = multi(p_scan, s_scan, toks[:LM_STEPS], key_base, 0)
+        torch.cuda.synchronize()
+        secs["scan_first"] = time.perf_counter() - t0
+        launches["scan"] = {k: v for k, v in ops.launch_counts().items()
+                            if v}
+        mem["capture_and_replays_peak_gb"] = (
+            torch.cuda.max_memory_allocated() - base2) / 2 ** 30
+        scan_losses = m["loss"].tolist()
+        a = _lm_tree_leaves(p_loop, s_loop)
+        b = _lm_tree_leaves(p_scan, s_scan)
+        equal = len(a) == len(b) and all(torch.equal(x, y)
+                                         for x, y in zip(a, b))
+        print(f"[{label}] deepseek_7b d 4096 x {LM_LAYERS} layers, batch "
+              f"{LM_B}, seq {LM_S}, {policy}: {LM_STEPS} loop steps vs "
+              f"{LM_STEPS} graphed: params and optimizer state ({len(a)} "
+              f"tensors) bitwise equal {equal}, losses loop {loop_losses} "
+              f"graph {scan_losses}; launches loop {launches['python']}, "
+              f"graph (warm-up step and {LM_STEPS} replays) "
+              f"{launches['scan']}")
+        check(equal and loop_losses == scan_losses,
+              f"{label}: the graphed LM steps differ from the loop")
+        # a random model's first loss is near ln(vocab); at the lm_managed
+        # pulse gains (lr 1 in the reads' update) the loss then climbs
+        check(all(math.isfinite(v) for v in scan_losses)
+              and abs(scan_losses[0] - math.log(cfg.vocab)) < 1.0,
+              f"{label}: losses {scan_losses}")
+        prog = multi.program
+        want = dict(lm_per_step(cfg, policy), key_schedule=1)
+        print(f"[{label}] per replay {prog.captured}, from the code {want}")
+        check(prog.captured == want, f"{label}: the capture recorded "
+              f"{prog.captured}, expected {want}")
+        missing = [k for k in want if not launches["scan"].get(k)]
+        check(not missing, f"{label}: the kernels {missing} never launched")
+        census = _graph_census(prog.graph,
+                               ROOT / "build" / "graphs" / f"{label}.dot")
+        tape = dict(derivations=len(prog.tape.recorded[0]),
+                    seeds=len(prog.tape.recorded[2]))
+        print(f"[{label}] captured step's nodes ({sum(census.values())}): "
+              f"{census}; key tape {tape}")
+        # the loop's state goes: the graph's pool and a loop step's
+        # temporaries do not fit beside two states
+        del a, b, p_loop, s_loop
+        _free()
+        more = toks[LM_STEPS:LM_STEPS + LM_TIMED]
+        secs["scan"] = _timed(lambda: multi(p_scan, s_scan, more, key_base,
+                                            LM_STEPS))
+        # the loop's rate over its steps after the first (cuBLAS and the
+        # allocator warm in the first)
+        rate = {"python": (LM_STEPS - 1) / sum(loop_s[1:]),
+                "scan": LM_TIMED / secs["scan"]}
+        # one more replay, profiled; its wall the timed replays' mean
+        replay = _profile_report(_device_rows(prog.run), secs["scan"]
+                                 / LM_TIMED * 1e3,
+                                 f"one replayed {label} step")
+    check(plain.calls == 0, f"{label}: {plain.calls} plain-version calls on "
+          "the card")
+    print(f"[{label}] steps/s python {rate['python']:.3f}, scan "
+          f"{rate['scan']:.3f} (loop steps {[round(t, 2) for t in loop_s]}"
+          f" s; scan's first {LM_STEPS} with warm-up and capture "
+          f"{secs['scan_first']:.1f}s); memory: state {mem['state_gb']:.2f} "
+          f"GB per copy, peak above it {mem['python_step_peak_gb']:.2f} GB "
+          f"in loop steps, {mem['capture_and_replays_peak_gb']:.2f} GB in "
+          f"the capture and replays")
+    results[f"lm_train_{label}"] = dict(
+        policy=policy, layers=LM_LAYERS, batch=LM_B, seq=LM_S,
+        launches=launches["scan"], loop_launches=launches["python"],
+        per_replay=prog.captured, per_step_from_code=want,
+        graph_nodes=census, key_tape=tape, losses=scan_losses,
+        steps_per_s=rate,
+        seconds=secs, memory_gb=mem, replayed_step=replay)
+    del p_scan, s_scan, multi, prog
+    _free()
+
+
+def lm_cli(results):
+    """The CLI entry ``launch.train.train("deepseek_7b", smoke=True)`` on
+    the card (the README's policy, on the kernels): 20 graphed steps,
+    finite losses, the analog kernels launched."""
+    import math
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tl
+    ops.reset_launch_counts()
+    r = tl.train("deepseek_7b", smoke=True, steps=20, batch=LM_B, seq=LM_S,
+                 analog_policy=LM_CLI_POLICY, use_pallas=True, log_every=10,
+                 device=DEV)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    print(f"[lm_cli] 20 steps: losses {r['losses'][0]:.4f} -> "
+          f"{r['final_loss']:.4f}, {r['steps_per_sec']:.1f} steps/s on "
+          f"{r['device']} (engine {r['engine']}), launches {counts}")
+    check(len(r["losses"]) == 20 and all(math.isfinite(v)
+                                         for v in r["losses"]),
+          "the LM CLI run's losses")
+    check(counts.get("noisy_read") and counts.get("key_schedule"),
+          f"the LM CLI run launched {counts}")
+    results["lm_cli"] = dict(losses=r["losses"], launches=counts,
+                             steps_per_s=r["steps_per_sec"])
+
+
+def lm_convergence(results):
+    """``benchmarks/analog_lm_convergence.py`` on the card at seeds 0-2:
+    the JAX pass rule ``a1 < 0.85 a0`` at every seed and both runs' last
+    10 losses inside their JAX seed bands (``jax_lm_bands.json``)."""
+    from repro_torch.benchmarks import analog_lm_convergence as conv
+    from repro_torch.benchmarks import bands
+    t0 = time.perf_counter()
+    runs = {s: conv.run(s, DEV) for s in conv.SEEDS}
+    v = conv.verdict(runs, bands.load(bands.LM_PATH))
+    for seed, r in runs.items():
+        (d0, d1), (a0, a1) = (conv.head_tail(r[m]) for m in conv.MODES)
+        print(f"[lm_convergence] seed {seed}: digital {d0:.4f} -> {d1:.4f},"
+              f" analog {a0:.4f} -> {a1:.4f} (a1 < 0.85 a0: "
+              f"{v['learned'][seed]})")
+    print(f"[lm_convergence] {bands.describe(v['band'], percent=False)} "
+          f"({time.perf_counter() - t0:.1f}s)")
+    results["lm_convergence"] = dict(
+        verdict=dict(learned=v["learned"], band=v["band"], ok=v["ok"]),
+        losses={s: {m: r[m][::5] for m in r} for s, r in runs.items()})
+    check(v["ok"], "the analog LM convergence runs miss the JAX rule or "
+          "bands")
+
+
+def lm_kernel_times(results):
+    """#1 and #2 at the LM's q forward, wg transposed (3 segments) and the
+    unembed transposed (25 segments), #6 at q and wo, #4 at wg's and the
+    unembed's counts: 1016 rows or slots each.  #2's bound counts the
+    second phase's reads of the rows the first saturates (none at NM's
+    scale), #6's the same of its transpose read."""
+    import torch
+    from repro_torch.core import update
+    from repro_torch.kernels import bwd_update_mvm as kb
+    from repro_torch.kernels import managed_mvm as km
+    from repro_torch.kernels import noisy_mvm as kn
+    from repro_torch.kernels import pulse_update as kp
+
+    rows_out = results["times"]
+    g = torch.Generator(device=DEV).manual_seed(1700)
+    b = LM_ROWS
+    for (name, r, c), tr in ((LM_TILES[0], False), (LM_TILES[1], True),
+                             (LM_TILES[3], True)):
+        k, n_out = (r, c) if tr else (c, r)
+        w = torch.randn(r, c, generator=g, device=DEV) * k ** -0.5
+        x = torch.randn(b, k, generator=g, device=DEV)
+        nm_s = x.abs().amax(1, keepdim=True)
+        kw = dict(sigma=SIGMA, alpha=ALPHA, transpose=tr, n_seg=_n_seg(k))
+        mkw = dict(kw, two_phase=True, retry_scale=16.0)
+        shape = f"LM {name}{'T' if tr else ''} {r}x{c} B={b}"
+        byts = 4 * (w.numel() + x.numel() + b * n_out) + b
+        flops = 2.0 * b * k * n_out
+        # the second phase re-reads only the rows the first saturates
+        again = int(km.managed_mvm_plain(w, x, nm_s, (1, 2), **dict(
+            mkw, two_phase=False))[1].sum())
+        lib = lambda: torch.matmul(x, w if tr else w.T)  # noqa: E731
+        _time_row(rows_out, "noisy_mvm", shape,
+                  lambda: kn.noisy_mvm(w, x, 1, **kw),
+                  lambda: kn.noisy_mvm_plain(w, x, 1, **kw), lib,
+                  byts, flops, 0.0, batch=b)
+        _time_row(rows_out, "managed_mvm", shape,
+                  lambda: km.managed_mvm(w, x, nm_s, (1, 2), **mkw),
+                  lambda: km.managed_mvm_plain(w, x, nm_s, (1, 2), **mkw),
+                  lib, byts + 4 * b, flops * (1 + again / b), 0.0, batch=b)
+        del w, x
+        _free()
+    gains = torch.tensor([1.0, 1.0], device=DEV)
+    for name, r, c in (LM_TILES[0], LM_TILES[2]):
+        w = torch.randn(r, c, generator=g, device=DEV) * r ** -0.5
+        x = torch.randn(b, c, generator=g, device=DEV)
+        dd = torch.randn(b, r, generator=g, device=DEV)
+        nm_s = dd.abs().amax(1, keepdim=True)
+        sa = (torch.rand(b, c, device=DEV) < 0.5).float()
+        sb = (torch.rand(b, r, device=DEV) < 0.5).float()
+        bkw = dict(sigma=SIGMA, alpha=ALPHA, two_phase=True, bl=1)
+        again = int(kb.bwd_update_mvm_plain(
+            w, dd, x, nm_s, (1, 2), (3, 4, 0), gains,
+            **dict(bkw, two_phase=False))[1].sum())
+        _time_row(
+            rows_out, "bwd_update_mvm", f"LM {name} {r}x{c} B={b} BL=1",
+            lambda: kb.bwd_update_mvm(w, dd, x, nm_s, (1, 2), (3, 4, 0),
+                                      gains, **bkw),
+            lambda: kb.bwd_update_mvm_plain(w, dd, x, nm_s, (1, 2),
+                                            (3, 4, 0), gains, **bkw),
+            lambda: (torch.matmul(dd, w), torch.matmul(sb.T, sa),
+                     torch.matmul(sb.abs().T, sa.abs())),
+            4 * (w.numel() + dd.numel() + x.numel() + b + 2 + 2 * w.numel()),
+            2.0 * b * r * c * (1 + again / b), 4.0 * b * r * c, batch=b)
+        del w, x, dd, sa, sb
+        _free()
+    gain = torch.tensor(0.7, device=DEV)
+    for name, r, c in (LM_TILES[1], LM_TILES[3]):
+        rws = update.signed_streams(5, torch.randn(b, r, generator=g,
+                                                   device=DEV), gain,
+                                    1).reshape(b, r).contiguous()
+        cls = update.signed_streams(6, torch.randn(b, c, generator=g,
+                                                   device=DEV), gain,
+                                    1).reshape(b, c).contiguous()
+        _time_row(rows_out, "pulse_counts", f"LM {name} {r}x{c} {b} slots",
+                  lambda: kp.pulse_counts(rws, cls),
+                  lambda: kp.pulse_counts_plain(rws, cls),
+                  lambda: (torch.matmul(rws.T, cls),
+                           torch.matmul(rws.abs().T, cls.abs())),
+                  4 * (b * (r + c) + 2 * r * c), 0.0, 4.0 * b * r * c,
+                  batch=b)
+        del rws, cls
+        _free()
+
+
+def lm_training(results):
+    lm_kernels_vs_plain(results)
+    for label, policy in LM_POLICIES:
+        lm_train(label, policy, results)
+    lm_cli(results)
+    lm_convergence(results)
+    lm_kernel_times(results)
+
+
+# ---------------------------------------------------------------------------
 # (e) training kernels: times against bound, plain version and PyTorch
 # ---------------------------------------------------------------------------
 
@@ -3373,6 +3808,20 @@ def summary_line(results):
                 kernels[-1]["seq_time"] = {k: t[k] for k in (
                     "shape", "batch", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms")}
+        if meta["kind"] in ("noisy_read", "managed_read", "pulse_counts",
+                            "bwd_update", "key_schedule"):
+            # and in t's full-width LM runs (warm-up step and 3 replays),
+            # with a time at an LM training shape
+            kernels[-1]["launches_lm"] = {
+                name: results[f"lm_train_{name}"]["launches"][meta["kind"]]
+                for name, _ in LM_POLICIES
+                if results[f"lm_train_{name}"]["launches"].get(meta["kind"])}
+            t = next((r for r in results["times"] if r["kernel"] == kname
+                      and r["shape"].startswith("LM")), None)
+            if t is not None:
+                kernels[-1]["lm_time"] = {k: t[k] for k in (
+                    "shape", "batch", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}
         if meta["kind"] in ("noisy_read", "managed_read", "pulse_counts"):
             # and in g4's chunked 20-step epochs (warm-up step included)
             kernels[-1]["launches_stream"] = {
@@ -3432,6 +3881,8 @@ PHASES = [
      kill_and_resume),
     ("r2", "one training step, card vs CPU", step_reference),
     ("e", "kernel times", kernel_times_all),
+    ("t", "the analog LM trainer at full width: graphed steps vs the loop, "
+     "the convergence runs in their JAX bands", lm_training),
     # last: after its profile of a 28k-node replay, the profiler kept no
     # device record of most of e's kernels (49 of 73 rows, where the
     # parent's runs lost 0-2)

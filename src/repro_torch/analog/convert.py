@@ -12,7 +12,11 @@ as the stacked layers of the JAX package do, and each layer gets its own
 tile whose device seed derives from ``fold_in(site_key, layer)`` — the JAX
 package's seed schedule, so both packages give the same tile seeds.
 
-:func:`from_jax_params` carries the JAX package's parameters across.
+:func:`from_jax_params` carries the JAX package's parameters across, and
+:func:`from_jax_opt_state` an optimizer state over them.  The JAX package
+stacks an LM's layers (one leaf per parameter across layers, the layer axis
+first); :func:`stack_layers` writes the port's per-layer list in that
+layout (the LM checkpoint's) and :func:`unstack_layers` reads it back.
 """
 
 from __future__ import annotations
@@ -152,10 +156,19 @@ def from_jax_params(tree: Params, *, device="cuda") -> Params:
     per-layer dicts, one tile per layer.
     """
     def leaf(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, copy=True)).to(device)
+        a = np.array(a, copy=True)
+        if a.dtype.name == "bfloat16":      # ml_dtypes: through its bits
+            return torch.from_numpy(a.view(np.int16)).view(
+                torch.bfloat16).to(device)
+        return torch.from_numpy(a).to(device)
+
+    def pick_leaf(a, i: Optional[int]):
+        # a rank-0 leaf under a stack is an optimizer state's sentinel,
+        # one for every layer
+        return a if i is None or np.ndim(a) == 0 else np.asarray(a)[i]
 
     def analog(node, i: Optional[int]) -> AnalogState:
-        pick = (lambda a: a) if i is None else (lambda a: a[i])
+        pick = lambda a: pick_leaf(a, i)  # noqa: E731
         m = node["meta"]
         meta = AnalogMeta(cfg=_port_cfg(m.cfg), bias=bool(m.bias),
                           kind=m.kind, conv=_port_conv(getattr(m, "conv",
@@ -165,15 +178,18 @@ def from_jax_params(tree: Params, *, device="cuda") -> Params:
         if maps is not None:
             maps = DeviceMaps(*(leaf(pick(maps[k])).contiguous()
                                 for k in ("dw_up", "dw_dn", "bound")))
-        return AnalogState(leaf(pick(node["w"])).contiguous(), maps,
-                           prng.from_key_data(pick(node["seed"])), meta)
+        seed = pick(node["seed"])
+        seed = (prng.from_key_data(seed) if np.issubdtype(
+            np.asarray(seed).dtype, np.integer) else leaf(seed))
+        return AnalogState(leaf(pick(node["w"])).contiguous(), maps, seed,
+                           meta)
 
     def conv(node, i: Optional[int]):
         if _is_jax_analog(node):
             return analog(node, i)
         if isinstance(node, dict):
             return {k: conv(v, i) for k, v in node.items()}
-        return leaf(node if i is None else np.asarray(node)[i])
+        return leaf(pick_leaf(node, i))
 
     out = {}
     for k, v in tree.items():
@@ -186,8 +202,95 @@ def from_jax_params(tree: Params, *, device="cuda") -> Params:
 
 
 def _stack_depth(node) -> int:
+    """The layer count of a stacked subtree (rank-0 sentinels carry no
+    layer axis)."""
     if _is_jax_analog(node):
-        return int(np.shape(node["w"])[0])
+        node = {"w": node["w"], "seed": node["seed"]}
     if isinstance(node, dict):
-        return _stack_depth(next(iter(node.values())))
-    return int(np.shape(node)[0])
+        depths = [_stack_depth(v) for v in node.values()]
+        return max(depths, default=0)
+    return int(np.shape(node)[0]) if np.ndim(node) else 0
+
+
+def from_jax_opt_state(state, *, device="cuda"):
+    """The JAX package's optimizer state, as numpy arrays (tiles as
+    :func:`from_jax_params` takes them), -> the port's: ``()`` for a
+    stateless optimizer, AdamW's ``{"mu", "nu", "count"}`` with ``count``
+    an int32 0-d tensor, or momentum's tree."""
+    if isinstance(state, tuple) and not state:
+        return ()
+    if isinstance(state, dict) and set(state) == {"mu", "nu", "count"}:
+        return {"mu": from_jax_params(state["mu"], device=device),
+                "nu": from_jax_params(state["nu"], device=device),
+                "count": torch.from_numpy(np.array(state["count"],
+                                                   dtype=np.int32)
+                                          ).to(device)}
+    return from_jax_params(state, device=device)
+
+
+# ---------------------------------------------------------------------------
+# The stacked layout of an LM's layers
+# ---------------------------------------------------------------------------
+
+def _stack(nodes: List[Any]) -> Any:
+    first = nodes[0]
+    if isinstance(first, AnalogState):
+        maps = None if first.maps is None else DeviceMaps(*(
+            _stack([getattr(n.maps, f) for n in nodes])
+            for f in ("dw_up", "dw_dn", "bound")))
+        seeds = [n.seed for n in nodes]
+        seed = (prng.KeyStack.of(seeds) if isinstance(first.seed, tuple)
+                else _stack(seeds))
+        return AnalogState(_stack([n.w for n in nodes]), maps, seed,
+                           first.meta)
+    if isinstance(first, dict):
+        return {k: _stack([n[k] for n in nodes]) for k in first}
+    if isinstance(first, tuple):        # a host key
+        return prng.KeyStack.of(nodes)
+    if first.dim() == 0:                # a sentinel: one for the stack
+        return first
+    return torch.stack([t.detach() for t in nodes])
+
+
+def _unstack(node: Any, n: int) -> List[Any]:
+    if isinstance(node, AnalogState):
+        ws, seeds = _unstack(node.w, n), _unstack(node.seed, n)
+        maps = ([None] * n if node.maps is None else [
+            DeviceMaps(*parts) for parts in zip(*(
+                _unstack(getattr(node.maps, f), n)
+                for f in ("dw_up", "dw_dn", "bound")))])
+        return [AnalogState(w, m, s, node.meta)
+                for w, m, s in zip(ws, maps, seeds)]
+    if isinstance(node, dict):
+        per = {k: _unstack(v, n) for k, v in node.items()}
+        return [{k: per[k][i] for k in node} for i in range(n)]
+    if isinstance(node, prng.KeyStack):
+        return [node[i] for i in range(n)]
+    if node.dim() == 0:
+        return [node.clone() for _ in range(n)]
+    return [node[i].clone() for i in range(n)]
+
+
+def _at_layers(tree: Any, fn: Callable[[Any], Any]) -> Any:
+    """``tree`` with ``fn`` applied to the value under every ``layers``
+    key (tuples, e.g. ``(params, opt_state)``, and dicts walked)."""
+    if isinstance(tree, tuple):
+        return tuple(_at_layers(v, fn) for v in tree)
+    if isinstance(tree, dict):
+        return {k: fn(v) if k == "layers" else _at_layers(v, fn)
+                for k, v in tree.items()}
+    return tree
+
+
+def stack_layers(tree: Any) -> Any:
+    """The port's LM tree (params, an optimizer state, or a tuple of
+    them) in the JAX package's stacked layout: each ``layers`` list of
+    per-layer dicts becomes one dict whose tensors carry a leading layer
+    axis, the tiles' seeds a :class:`~repro_torch.utils.prng.KeyStack`,
+    and an optimizer state's rank-0 sentinels one for the stack."""
+    return _at_layers(tree, _stack)
+
+
+def unstack_layers(tree: Any, n_layers: int) -> Any:
+    """Inverse of :func:`stack_layers` for a stack of ``n_layers``."""
+    return _at_layers(tree, lambda node: _unstack(node, n_layers))

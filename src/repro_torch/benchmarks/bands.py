@@ -28,6 +28,11 @@ copy-task curves at the figure's protocol over ``LSTM_SEEDS``, each seed's
 ``mean_last5`` the error ``1 - accuracy`` averaged over the last five
 epochs (:func:`mean_last5_error`), and :data:`LSTM_PAIRS` are its pairs.
 It is written by ``python tests/test_torch_lstm_figure.py --write-bands``.
+
+The analog LM's convergence runs (``benchmarks/analog_lm_convergence.py``)
+are held by it too, on each run's mean loss over its last 10 steps
+(``last10``): ``jax_lm_bands.json``, written by ``python
+tests/test_torch_lm_train.py --write-bands``.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from repro_torch.benchmarks import cnn_suite
 
 PATH = Path(__file__).resolve().parent / "jax_bands.json"
 LSTM_PATH = PATH.with_name("jax_lstm_bands.json")
+LM_PATH = PATH.with_name("jax_lm_bands.json")
 #: The least half-width of a band, in test error (one percentage point).
 MIN_DELTA = 0.01
 LSTM_SEEDS = (0, 1, 2)
@@ -62,21 +68,22 @@ def load(path: Path = PATH) -> Dict:
         return json.load(f)
 
 
-def band(entry: Dict) -> Dict[str, float]:
-    """A run's band from its JAX entry: ``{"mean", "lo", "hi", "delta"}``."""
-    m = np.asarray([entry["mean_last5"][str(s)]
-                    for s in sorted(int(k) for k in entry["mean_last5"])])
+def band(entry: Dict, key: str = "mean_last5") -> Dict[str, float]:
+    """A run's band from its JAX entry's per-seed ``key``: ``{"mean",
+    "lo", "hi", "delta"}``."""
+    m = np.asarray([entry[key][str(s)]
+                    for s in sorted(int(k) for k in entry[key])])
     delta = max(float(np.std(m)), MIN_DELTA)
     return {"mean": float(np.mean(m)), "lo": float(m.min()) - delta,
             "hi": float(m.max()) + delta, "delta": delta}
 
 
 def decide(pair: Sequence[str], port: Dict[str, Sequence[float]],
-           bands: Dict) -> Dict:
-    """The verdict of one pair: ``port`` maps each run to its
-    ``mean_last5`` per seed."""
+           bands: Dict, key: str = "mean_last5") -> Dict:
+    """The verdict of one pair: ``port`` maps each run to its ``key`` per
+    seed."""
     a, b = pair
-    ba, bb = (band(bands["runs"][n]) for n in pair)
+    ba, bb = (band(bands["runs"][n], key) for n in pair)
     pa, pb = (float(np.mean(port[n])) for n in pair)
     delta = max(ba["delta"], bb["delta"])
     in_a = ba["lo"] <= pa <= ba["hi"]
@@ -103,9 +110,11 @@ def decide_all(port: Dict[str, Sequence[float]], bands: Dict,
             if p[0] in port and p[1] in port]
 
 
-def describe(v: Dict) -> str:
-    """One line of a verdict, errors in %."""
-    pct = lambda x: f"{100 * x:.2f}"  # noqa: E731
+def describe(v: Dict, percent: bool = True) -> str:
+    """One line of a verdict, errors in % (``percent``) or as they are
+    (losses)."""
+    pct = ((lambda x: f"{100 * x:.2f}") if percent  # noqa: E731
+           else (lambda x: f"{x:.4f}"))
     (a, b), (pa, pb), (ja, jb) = v["pair"], v["port"], v["jax"]
     return (f"{a} {pct(pa)} in [{pct(v['band_a'][0])}, "
             f"{pct(v['band_a'][1])}]: {v['in_band'][0]}; {b} {pct(pb)} in "

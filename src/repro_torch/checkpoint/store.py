@@ -19,7 +19,9 @@ DeviceMaps` as ``(dw_up, dw_dn, bound)``, path parts joined with ``/``.
 A host key (``prng.Key``, a tuple of two Python ints; the port's trees
 hold no other such pair) is one leaf, written as its key data, ``(2,)``
 uint32, under ``dtype`` ``"key<fry>"`` (JAX's name for a threefry key),
-shape ``[]`` and ``is_key`` true.  bfloat16 is written through a uint16
+shape ``[]`` and ``is_key`` true; a :class:`~repro_torch.utils.prng.
+KeyStack` (the stacked seeds of an LM's layers) is one such leaf of shape
+``[n]``.  bfloat16 is written through a uint16
 view.  ``AnalogMeta`` is static structure: never written, and ``restore``
 takes it from ``like``.
 
@@ -50,8 +52,15 @@ KEY_DTYPE = "key<fry>"
 
 
 def _is_key(leaf) -> bool:
-    return (type(leaf) is tuple and len(leaf) == 2
-            and all(type(v) is int for v in leaf))
+    return isinstance(leaf, prng.KeyStack) or (
+        type(leaf) is tuple and len(leaf) == 2
+        and all(type(v) is int for v in leaf))
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    if isinstance(leaf, prng.KeyStack):
+        return leaf.shape
+    return () if _is_key(leaf) else tuple(np.shape(leaf))
 
 
 def _map_leaves(tree: PyTree, fn: Callable[[str, Any], Any],
@@ -103,6 +112,8 @@ def _dtype_name(leaf) -> str:
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, prng.KeyStack):
+        return leaf.data
     if _is_key(leaf):
         return prng.key_data(leaf)
     if isinstance(leaf, torch.Tensor):
@@ -115,8 +126,8 @@ def _to_numpy(leaf) -> np.ndarray:
 
 def _leaf_meta(leaf) -> Dict:
     dt = _dtype_name(leaf)
-    shape = [] if _is_key(leaf) else list(np.shape(leaf))
-    return {"shape": shape, "dtype": dt, "is_key": dt == KEY_DTYPE}
+    return {"shape": list(_shape(leaf)), "dtype": dt,
+            "is_key": dt == KEY_DTYPE}
 
 
 def _write_delay_s() -> float:
@@ -196,6 +207,8 @@ def latest_step(directory: str) -> Optional[int]:
 
 def _restore_leaf(arr: np.ndarray, meta: Dict, device):
     if meta["is_key"]:
+        if meta["shape"]:
+            return prng.KeyStack(arr)
         return prng.from_key_data(arr)
     if meta["dtype"] == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
@@ -225,7 +238,7 @@ def restore(directory: str, step: int, like: PyTree, device=None,
     def load(key, leaf):
         entry = next(it)
         fpath = os.path.join(path, entry["file"])
-        want = () if _is_key(leaf) else tuple(np.shape(leaf))
+        want = _shape(leaf)
         if entry["key"] != key or tuple(entry["shape"]) != want:
             raise ValueError(f"{fpath}: leaf {entry['key']!r} of shape "
                              f"{tuple(entry['shape'])}, model expects "

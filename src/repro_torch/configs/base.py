@@ -5,6 +5,12 @@ Each ``configs/<id>.py`` exports ``CONFIG`` (the published numbers) and
 ``registry`` resolves ``--arch`` names.  Only the dense family is ported:
 MoE, SSM, hybrid and encoder-decoder stacks, QKV bias, sliding-window
 attention and the int8 KV cache are not part of this package yet.
+
+Training: ``remat`` recomputes each layer block in the backward
+(``torch.utils.checkpoint``; ``remat_policy='full'``).  The JAX package's
+``'dots'`` policy saves the projection outputs through an XLA checkpoint
+policy that has no PyTorch counterpart saving the same values; it raises
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -14,7 +20,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.analog.policy import AnalogPolicy
+from repro_torch.analog.policy import AnalogPolicy, AnalogRule
+from repro_torch.core.device import RPUConfig
+
+#: The projections the legacy ``ModelConfig.analog`` field forces analog
+#: (never the unembed or an adapter).
+LEGACY_ANALOG_SCOPE = ("*/attn/*", "*/cross/*", "*/mlp/*", "*/ssm/*",
+                       "*/shared/*")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,15 +49,50 @@ class ModelConfig:
     use_flash_kernel: bool = False        # prefill attention through the
                                           # flash-attention kernel instead
                                           # of the chunked fallback
+    # training
+    remat: bool = True                    # recompute each layer block
+    remat_policy: str = "full"            # 'full' ('dots' is not ported)
     # analog (RPU): dense projections matched by a rule are converted to
     # AnalogState tiles at init (repro_torch.analog.convert)
     analog_policy: Optional[AnalogPolicy] = None
+    # analog: DEPRECATED single global RPUConfig on every block projection;
+    # resolves to a uniform policy (resolved_analog_policy)
+    analog: Optional[RPUConfig] = None
 
     def __post_init__(self):
         if self.family != "dense":
             raise NotImplementedError(
                 f"only the dense family is ported, got {self.family!r}")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
+
+    @property
+    def uses_analog(self) -> bool:
+        return self.analog is not None or self.analog_policy is not None
+
+    def resolved_analog_policy(self) -> Optional[AnalogPolicy]:
+        """The per-layer policy, with the legacy ``analog`` field shimmed
+        to rules over exactly the block projections it forced analog."""
+        if self.analog_policy is not None:
+            return self.analog_policy
+        if self.analog is not None:
+            return AnalogPolicy(rules=tuple(
+                AnalogRule(pat, self.analog, "ModelConfig.analog (legacy)")
+                for pat in LEGACY_ANALOG_SCOPE))
+        return None
 
     @property
     def head_dim(self) -> int:
         return self.d_head or (self.d_model // self.n_heads)
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), for 6ND."""
+        d, hd = self.d_model, self.head_dim
+        emb = 2 * self.vocab * d                  # untied embed + unembed
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * hd * d
+        return emb + self.n_layers * (attn + 3 * d * self.d_ff)
+
+    def active_param_count(self) -> int:
+        """Active params per token: all of them in the dense family."""
+        return self.param_count()

@@ -1,21 +1,103 @@
-"""Deterministic fault injection at step boundaries, the JAX package's
-``distributed/fault.py`` (``DeviceLossError``, ``FaultInjector``).
+"""Fault-tolerance runtime pieces, the JAX package's ``distributed/
+fault.py``: straggler watchdog, preemption hook, restart-with-retry driver
+glue and deterministic fault injection at step boundaries.  Everything
+here is host-side logic.
 
 The kill-and-resume tests drive it through ``REPRO_FAULT_MODE`` and
 ``REPRO_FAULT_STEP``: it SIGKILLs the process at an exact step boundary
 (``sigkill``; SIGKILL cannot be caught, so the run dies as a preempted
 worker does), SIGKILLs it while an async checkpoint write is in flight
 (``sigkill_mid_save``), or raises :class:`DeviceLossError`
-(``device_loss``, ``REPRO_FAULT_DROP`` devices).  The straggler watchdog,
-the preemption handler and the restart loop are not ported.
+(``device_loss``, ``REPRO_FAULT_DROP`` devices).  On one card the LM
+trainer restarts from its newest checkpoint after a device loss; the JAX
+package's elastic re-shard onto the surviving devices (``elastic.
+mark_lost``, ``grid_plan``) is not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import signal
+import threading
 import time
-from typing import Optional
+from typing import Callable, Dict, List, Optional
+
+
+@dataclasses.dataclass
+class StragglerReport:
+    step: int
+    step_time: float
+    ewma: float
+    ratio: float
+    is_straggler: bool
+
+
+class StragglerWatchdog:
+    """Flags steps whose wall time exceeds ``threshold`` x the EWMA; after
+    ``trip_after`` consecutive slow steps it calls ``on_trip``."""
+
+    def __init__(self, threshold: float = 2.0, halflife: int = 50,
+                 trip_after: int = 5,
+                 on_trip: Optional[Callable[[StragglerReport], None]] = None):
+        self.threshold = threshold
+        self.decay = 0.5 ** (1.0 / halflife)
+        self.trip_after = trip_after
+        self.on_trip = on_trip
+        self.ewma: Optional[float] = None
+        self._consecutive = 0
+        self.reports: List[StragglerReport] = []
+
+    def observe(self, step: int, step_time: float) -> StragglerReport:
+        if self.ewma is None:
+            self.ewma = step_time
+        ratio = step_time / max(self.ewma, 1e-9)
+        slow = ratio > self.threshold
+        rep = StragglerReport(step, step_time, self.ewma, ratio, slow)
+        self.reports.append(rep)
+        if slow:
+            self._consecutive += 1
+            if self._consecutive >= self.trip_after and self.on_trip:
+                self.on_trip(rep)
+                self._consecutive = 0
+        else:
+            self._consecutive = 0
+            # only healthy steps feed the EWMA (a straggler must not
+            # poison the baseline)
+            self.ewma = self.decay * self.ewma + (1 - self.decay) * step_time
+        return rep
+
+    def reset(self) -> None:
+        """Forget the timing baseline (keep the reports): a restarted run
+        has another steady-state step time (its first steps capture)."""
+        self.ewma = None
+        self._consecutive = 0
+
+
+class PreemptionHandler:
+    """SIGTERM-triggered graceful shutdown: request a final checkpoint at
+    the next step boundary."""
+
+    def __init__(self):
+        self._requested = threading.Event()
+        self._installed = False
+
+    def install(self):
+        # signal handlers can only be set from the main thread
+        if not self._installed and \
+                threading.current_thread() is threading.main_thread():
+            signal.signal(signal.SIGTERM, self._handler)
+            self._installed = True
+        return self
+
+    def _handler(self, signum, frame):
+        self._requested.set()
+
+    def preemption_requested(self) -> bool:
+        return self._requested.is_set()
+
+    def simulate(self):           # for tests
+        self._requested.set()
 
 
 class DeviceLossError(RuntimeError):
@@ -98,3 +180,27 @@ class FaultInjector:
         if self.mode == "sigkill_mid_save":
             time.sleep(0.05)
         os.kill(os.getpid(), signal.SIGKILL)
+
+
+def run_with_restarts(make_state: Callable[[], Dict],
+                      run: Callable[[Dict], None],
+                      max_restarts: int = 3,
+                      on_restart: Optional[Callable[[int, BaseException],
+                                                    None]] = None) -> int:
+    """Driver-level restart loop: (re)build state (restoring the newest
+    checkpoint) and run; a failure restarts up to ``max_restarts`` times.
+    Returns the number of restarts."""
+    attempts = 0
+    while True:
+        try:
+            state = make_state()
+            run(state)
+            return attempts
+        except KeyboardInterrupt:
+            raise
+        except BaseException as e:   # noqa: BLE001 - node failure simulation
+            attempts += 1
+            if on_restart:
+                on_restart(attempts, e)
+            if attempts > max_restarts:
+                raise

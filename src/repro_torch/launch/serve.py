@@ -27,11 +27,11 @@ from repro_torch.serve import engine
 from repro_torch.utils import prng
 
 
-def print_policy_table(params) -> None:
+def print_policy_table(params, who: str = "serve") -> None:
     """Resolved per-layer policy table."""
     from repro_torch.analog.convert import conversion_plan
     from repro_torch.analog.presets import describe_cfg
-    print("[serve] resolved analog policy (layer -> rule -> knobs):")
+    print(f"[{who}] resolved analog policy (layer -> rule -> knobs):")
     for path, label, c in conversion_plan(params):
         print(f"  {path:<34} {label:<28} {describe_cfg(c)}")
 

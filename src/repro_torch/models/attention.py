@@ -113,6 +113,13 @@ def forward(p, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
     if cfg.use_flash_kernel:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            # the JAX package's pallas_call has no JVP rule either: its
+            # training forward raises under jax.grad
+            raise NotImplementedError(
+                "the flash-attention kernel has no backward; train with "
+                "use_flash_kernel=False (the chunked attention)")
         with torch.profiler.record_function("flash_attention"):
             out = fa.flash_attention(q, k, v, causal=True, window=0)
     else:

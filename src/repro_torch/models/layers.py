@@ -9,6 +9,7 @@ float32 and cast back to the activation dtype.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -67,12 +68,24 @@ def rmsnorm_apply(p: Params, x: Tensor, eps: float = 1e-5) -> Tensor:
 
 # --- rotary position embedding -------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(half: int, theta: float, device: torch.device) -> Tensor:
+    """The rotary frequencies (numpy's float32 powers, the JAX package's),
+    copied to ``device`` once: a captured step must not copy from the host,
+    and the engine's warm-up step fills this before its capture (a
+    non-blocking copy from pinned memory, which is no host sync)."""
+    freqs = (1.0 / theta) ** (np.arange(0, half, dtype=np.float32) / half)
+    host = torch.from_numpy(freqs)
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
+
+
 def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     """x: (..., S, H, D) or (..., S, D); positions broadcastable (..., S)."""
     d = x.shape[-1]
     half = d // 2
-    freqs = (1.0 / theta) ** (np.arange(0, half, dtype=np.float32) / half)
-    freqs = torch.from_numpy(freqs).to(x.device)
+    freqs = _rope_freqs(half, float(theta), x.device)
     ang = positions[..., None].to(torch.float32) * freqs    # (..., S, half)
     if x.dim() == ang.dim() + 1:                            # head axis
         ang = ang[..., None, :]
@@ -92,4 +105,6 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
 
 
 def embed_apply(p: Params, tokens: Tensor) -> Tensor:
-    return p["table"][tokens]
+    # F.embedding's backward sums repeated tokens in a fixed order on the
+    # card (an indexing gather's backward accumulates with atomics)
+    return torch.nn.functional.embedding(tokens, p["table"])

@@ -45,6 +45,13 @@ is a host loop, so the captured step records every timestep's reads, the
 backward sweep's transpose reads and count launches (``row_offset = t *
 B``) and each tile's one finalize; under iterative BM every managed read
 of every timestep takes the predicated retries.
+The LM trainer's :func:`scan_steps` (``scan_steps`` :362) runs a chunk of
+``train/lm.py`` steps on the same graphed step: the captured step is the
+key schedule (root ``fold_in(base, step)``), the loss, its gradients (each
+block recomputed under remat), the optimizer's in-place update of params
+and state (AdamW's count included) and the counter's ``add_``; each
+replay's tokens come from a static device buffer its caller fills, and the
+chunk's losses are read back once.
 The data-parallel split is not ported.
 """
 
@@ -217,6 +224,9 @@ def _nodes(tree):
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from _nodes(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _nodes(v)
 
 
 def _signature(params, xs: torch.Tensor, ys: torch.Tensor):
@@ -235,6 +245,9 @@ def _copies(tree):
                            tree.meta)
     if isinstance(tree, dict):
         return {k: _copies(v) for k, v in tree.items()}
+    if isinstance(tree, list) or (isinstance(tree, tuple) and not all(
+            type(v) is int for v in tree)):     # a host key is a leaf
+        return type(tree)(_copies(v) for v in tree)
     return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
 
 
@@ -424,3 +437,64 @@ def make_seq_eval_fn(cfg, *, batch: int = 256) -> Callable:
 
     evaluate.program = evaluate.sig = None
     return evaluate
+
+
+# ---------------------------------------------------------------------------
+# The LM trainer's chunks of steps
+# ---------------------------------------------------------------------------
+
+class _LMStep(_Graphed):
+    def __init__(self, step, tokens: torch.Tensor, device):
+        super().__init__(device)
+        self.step = step
+        self.tokens = torch.zeros(tuple(tokens.shape), dtype=tokens.dtype,
+                                  device=self.device)
+
+    def body(self, state, root):
+        params, opt_state = state
+        _, _, metrics = self.step(params, opt_state,
+                                  {"tokens": self.tokens}, root)
+        self.ctr.add_(1)
+        return metrics["loss"]
+
+
+def scan_steps(step_fn: Callable) -> Callable:
+    """Lift one LM train step into a chunk of graphed steps.
+
+    ``step_fn(params, opt_state, batch, key) -> (params, opt_state,
+    metrics)`` (in place) becomes ``multi(params, opt_state, batches, base,
+    step0) -> (params, opt_state, metrics)``: ``batches`` (chunk, B, S)
+    tokens (host or device), step ``i`` of the chunk on ``batches[i]``
+    under ``fold_in(base, step0 + i)``, the JAX package's
+    ``fold_in_keys(key_base, arange(step0, step0 + chunk))``.  The first
+    call captures the step (again whenever the state's tensors or the
+    batch's shape change); each step is then one graph replay on a card
+    (run as it is on the CPU).  ``metrics["loss"]`` is the chunk's losses,
+    one host read-back per call.  ``multi.program`` is the captured step.
+    """
+    def multi(params, opt_state, batches, base: prng.Key, step0: int):
+        batches = torch.as_tensor(batches)
+        dev = next(n.w.device if isinstance(n, AnalogState) else n.device
+                   for n in _nodes(params))
+        sig = (tuple((n.w.data_ptr(), id(n.maps))
+                     if isinstance(n, AnalogState) else n.data_ptr()
+                     for n in _nodes((params, opt_state))),
+               tuple(batches.shape[1:]), batches.dtype, dev)
+        prog = multi.program
+        if prog is None or multi.sig != sig:
+            multi.program = None          # its graph's pool goes first
+            prog = _LMStep(step_fn, batches[0], dev)
+            prog.tokens.copy_(batches[0])
+            prog.build((_copies(params), _copies(opt_state)),
+                       (params, opt_state))
+            multi.program, multi.sig = prog, sig
+        prog.base.copy_(torch.tensor(base, dtype=torch.int64))
+        prog.ctr.copy_(torch.tensor([0, step0]))
+        losses = torch.empty(batches.shape[0], device=dev)
+        for i in range(batches.shape[0]):
+            prog.tokens.copy_(batches[i])
+            losses[i].copy_(prog.run())
+        return params, opt_state, {"loss": losses.cpu()}
+
+    multi.program = multi.sig = None
+    return multi

@@ -217,6 +217,31 @@ def from_key_data(data) -> Key:
     return int(a[0]) & _M32, int(a[1]) & _M32
 
 
+class KeyStack:
+    """A stack of host keys, ``data`` ``(n, 2)`` uint32: the port's form
+    of a JAX key array with a leading layer axis (the stacked tiles' seeds
+    of an LM checkpoint)."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data):
+        self.data = np.asarray(data, dtype=np.uint32).reshape(-1, 2)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.data.shape[0],)
+
+    def __getitem__(self, i: int) -> Key:
+        return from_key_data(self.data[i])
+
+    def __len__(self) -> int:
+        return self.data.shape[0]
+
+    @classmethod
+    def of(cls, keys: Sequence[Key]) -> "KeyStack":
+        return cls(np.asarray(keys, dtype=np.uint32))
+
+
 def _threefry_np(k: Key, x0: np.ndarray, x1: np.ndarray):
     """:func:`threefry2x32` over uint32 counter arrays (wrapping adds)."""
     k0, k1 = (np.uint32(v) for v in k)
@@ -284,10 +309,79 @@ def _erfinv32(x: np.ndarray) -> np.ndarray:
 
 def normal(k: Key, shape: Sequence[int], *, device="cpu") -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2) * erfinv(u)`` with ``u``
-    uniform in ``(-1, 1)``."""
+    uniform in ``(-1, 1)``.  Drawn on the host for a CPU tensor, and by
+    torch operations on a card (:func:`normal_on_device`: the same
+    threefry bits and uniforms; both erfinvs within 3 ulp of
+    ``jax.random.normal``'s)."""
+    if torch.device(device).type != "cpu":
+        return normal_on_device(k, shape, device=device)
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     z = np.float32(np.sqrt(2.0)) * _erfinv32(uniform(k, shape, lo, 1.0))
     return torch.from_numpy(np.ascontiguousarray(z, np.float32)).to(device)
+
+
+#: Entries of one chunk of :func:`normal_on_device`: its int64 threefry
+#: words take 512 MB each.
+NORMAL_CHUNK = 1 << 26
+
+
+def _threefry_bits_t(k: Key, idx: torch.Tensor) -> torch.Tensor:
+    """``x0 ^ x1`` of :func:`threefry2x32` at counters ``(0, idx)``, on
+    int64 tensors holding u32 words (in place on ``idx``'s copy)."""
+    k0, k1 = k
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = torch.full_like(idx, k0)
+    x1 = idx.add(k1).bitwise_and_(_M32)
+    for i in range(5):
+        for r, rr in _ROT[i & 1]:
+            x0.add_(x1).bitwise_and_(_M32)
+            t = torch.bitwise_left_shift(x1, r).bitwise_and_(_M32)
+            x1.bitwise_right_shift_(rr).bitwise_or_(t).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_M32)
+        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(_M32)
+    return x0.bitwise_xor_(x1)
+
+
+def _fma32_t(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` with one rounding (in float64, as
+    :func:`_fma32`)."""
+    return (a.to(torch.float64) * b + c).to(torch.float32)
+
+
+def normal_on_device(k: Key, shape: Sequence[int], *,
+                     device) -> torch.Tensor:
+    """:func:`normal` by torch operations on ``device``, in chunks of
+    :data:`NORMAL_CHUNK` entries: the threefry words in int64, the
+    uniform's fused multiply-add and the erfinv polynomial's in float64
+    rounded once to float32, its ``log1p`` in float64 and rounded (numpy's
+    and XLA's float32 ``log1p`` each round some entries another way)."""
+    f32 = np.float32
+    n = int(np.prod(shape)) if len(shape) else 1
+    if n >= 1 << 32:
+        raise ValueError("more than 2**32 random words")
+    lo = f32(np.nextafter(f32(-1.0), f32(0.0)))
+    span = float(f32(1.0) - lo)
+    sqrt2 = float(f32(np.sqrt(2.0)))
+    small_c = [float(f32(v)) for v in _ERFINV_SMALL]
+    large_c = [float(f32(v)) for v in _ERFINV_LARGE]
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    for s in range(0, n, NORMAL_CHUNK):
+        idx = torch.arange(s, min(n, s + NORMAL_CHUNK), dtype=torch.int64,
+                           device=device)
+        bits = _threefry_bits_t(k, idx)
+        fl = bits.bitwise_right_shift_(9).bitwise_or_(0x3F800000).to(
+            torch.int32).view(torch.float32) - 1.0
+        x = torch.clamp_min(_fma32_t(fl, span, float(lo)), float(lo))
+        del bits, fl
+        w = -torch.log1p((-(x * x)).to(torch.float64)).to(torch.float32)
+        small = w < 5.0
+        w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+        p = torch.where(small, small_c[0], large_c[0])
+        for a, b in zip(small_c[1:], large_c[1:]):
+            p = _fma32_t(p, w.to(torch.float64),
+                         torch.where(small, a, b).to(torch.float64))
+        out[s:s + x.numel()] = sqrt2 * (p * x)
+    return out.reshape(tuple(shape))
 
 
 def truncated_normal(k: Key, lower: float, upper: float,

@@ -72,3 +72,13 @@ def test_walks_the_recurrent_cells_and_the_entry_points():
     assert {("launch", "train.py"), ("launch", "serve.py"),
             ("data", "sequences.py"),
             ("benchmarks", "lstm_management.py")} <= walked
+
+
+def test_walks_the_lm_trainer():
+    """The LM trainer's modules (the step, the optimizers, the token
+    pipeline, the convergence benchmark) are walked."""
+    walked = {(p.parent.name, p.name) for p in FILES}
+    assert {("train", "lm.py"), ("train", "engine.py"),
+            ("optim", "optimizers.py"), ("data", "tokens.py"),
+            ("models", "transformer.py"), ("analog", "convert.py"),
+            ("benchmarks", "analog_lm_convergence.py")} <= walked

@@ -11,8 +11,8 @@ schedule).
 * ``make_seq_eval_fn`` gives the JAX package's accuracy (within one
   answer in 1e6) with every site digital, on the same parameters;
 * the full-width T = 34 step under iterative BM fits the key tape;
-* the trainer's defaults and key layout are the JAX package's, and other
-  archs are refused.
+* the trainer's defaults and key layout are the JAX package's, and archs
+  of the families the port lacks are refused.
 
 The CUDA case (marked ``cuda``) needs the card and skips here;
 ``chip_smoke.py`` phase l holds the captured graph against the loop there.
@@ -184,7 +184,7 @@ def test_trainer_defaults_and_keys_match_jax():
 
 def test_other_archs_are_refused():
     with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        ttrain.train("deepseek_7b", steps=1, batch=2, seq=8, smoke=True)
+        ttrain.train("mixtral_8x7b", steps=1, batch=2, seq=8, smoke=True)
     with pytest.raises(ValueError, match="unknown engine"):
         ttrain.train_sequence("lstm", steps=1, batch=2, seq=4, smoke=True,
                               device="cpu", engine="jit")
