@@ -169,6 +169,41 @@ Phases, each of which makes the script exit non-zero when it fails:
       memory; the CLI entry ``train("deepseek_7b", smoke=True)`` for 20
       steps; and ``benchmarks/analog_lm_convergence.py`` at seeds 0-2
       against the JAX rule ``a1 < 0.85 a0`` and the JAX seed bands;
+  (s3) serve the full-size stablelm_3b (32 layers, d 2560, vocab 50304)
+      under two-phase BM: batch 4, prompt 32, 16 tokens through
+      ``engine.greedy_generate``, one #2 launch per analog read (225 a
+      forward pass), no plain-version call, tok/s, a prefill's and a
+      decode step's wall and device time, the peak memory;
+  (m) mamba2_130m at full width (24 SSD layers, d 768, tied embeddings):
+      (i) two-phase BM, batch 4, prompt 512, 32 tokens (48 #2 launches a
+      pass); (ii) ``*ssm*=nm_bm:use_pallas=true`` (no update management:
+      the prefill's projections read once per prompt position through
+      ``recurrent.temporal``), batch 4, prompt 256: at least 12288 #1
+      launches in one prefill, its wall time, then 16 tokens through
+      ``launch.serve.serve``; (iii) the smoke model under both policies,
+      card against CPU: prefill and 4 decode steps, logits and every cache
+      leaf within 1e-4, greedy tokens equal;
+  (y) hymba_1_5b at full width (32 layers of sliding-window attention,
+      25 heads over 5, D 64, window 1024, beside an SSD branch) with the
+      flash kernel under two-phase BM: batch 2, prompt 1100, 16 tokens;
+      32 #8 launches a prefill and 289 #2 a pass, the ring cache (32, 2,
+      1024, 5, 64); #8 at the prefill's own q, k, v (layer 0) against its
+      plain version (rtol = atol = 2e-5) and the dtype they reach it in;
+      the smoke model (window 32, prompt 40), card against CPU, flash off
+      and on;
+  (q) ``launch.serve.serve_continuous`` at full width on hymba_1_5b, two-
+      phase BM: 4 slots, 12 requests of 627-1191 prompt tokens (both ring
+      cases in one pool) and 9-16 new tokens; every request completes;
+      the stream again through a scheduler that checks one tick with a
+      free slot (the live rows' logits bitwise unmoved when the free rows'
+      caches are NaN; each live row within 4x the noise of a batch-1
+      decode from its cache row) gives the same completions; the first 6
+      requests it admitted, alone, repeat its event log and tokens; every
+      first token equals a batch-1 ``greedy_generate``'s; req/s, tok/s and
+      how many requests match a per-request oracle (printed, not gated);
+      then #2 at mamba2's and hymba's in_proj (B = batch and batch x
+      prompt), #1 at the temporal route's per-position read and #8 at
+      hymba's prefill against SDPA with the same window mask, timed;
   (e) each kernel's time against its bound, its plain version and one
       PyTorch call on the same shapes (yardstick only): ``torch.matmul``
       for the reads and the count products, ``F.conv2d`` for the conv read,
@@ -3764,6 +3799,680 @@ def slice3_kernel_times(results):
                   batch=None)
 
 
+# ---------------------------------------------------------------------------
+# (s3, m, y, q) stablelm_3b, the ssm and hybrid families, continuous
+# batching
+# ---------------------------------------------------------------------------
+
+STABLE_BATCH, STABLE_PROMPT, STABLE_GEN = 4, 32, 16
+MAMBA_BATCH, MAMBA_PROMPT, MAMBA_GEN = 4, 512, 32
+# no update management: the SSD projections' prefill reads go through the
+# temporal route, one read per prompt position (iterative BM on #1)
+MAMBA_TEMPORAL = "*ssm*=nm_bm:use_pallas=true"
+MAMBA_T_PROMPT, MAMBA_T_GEN = 256, 16
+HYMBA_BATCH, HYMBA_PROMPT, HYMBA_GEN = 2, 1100, 16
+Q_SLOTS, Q_REQUESTS, Q_PROMPT, Q_GEN, Q_REPLAY = 4, 12, 1200, 16, 6
+# card vs CPU on the smoke models: tests/test_torch_families.py's
+# LOGIT_ATOL on logits and every cache leaf
+FAMILY_ATOL = 1e-4
+# s3's dense pool: a request that fills its linear cache (prompt + new =
+# max_seq) and a later one that decodes on while the first one's slot is
+# free, its pos running past the cache
+S3_STREAM = ((STABLE_PROMPT, STABLE_GEN, 0), (STABLE_PROMPT // 2,
+                                             STABLE_GEN, 3))
+PUBLISHED = {
+    "stablelm_3b": dict(n_layers=32, d_model=2560, n_heads=32,
+                        n_kv_heads=32, d_ff=6912, vocab=50304),
+    "mamba2_130m": dict(n_layers=24, d_model=768, vocab=50280,
+                        tie_embeddings=True),
+    "hymba_1_5b": dict(n_layers=32, d_model=1600, n_heads=25, n_kv_heads=5,
+                       d_head=64, d_ff=5504, vocab=32001, swa_window=1024),
+}
+
+
+# the runs whose launches the summary line reports per kernel
+FAMILY_RUNS = ("serve_stablelm", "serve_mamba", "serve_mamba_temporal",
+               "serve_hymba", "serve_continuous")
+
+
+def _load(label, arch, policy, **over):
+    """The published ``arch`` under ``policy`` on the card: (cfg, params,
+    akey); prints its size, the seconds it took and the memory it holds."""
+    import torch
+    from repro_torch.launch import serve as S
+    cfg = S.build_cfg(arch, SMOKE, policy)
+    for k, v in PUBLISHED[arch].items():
+        check(SMOKE or getattr(cfg, k) == v, f"not the published {arch}: {k}")
+    cfg = dataclasses.replace(cfg, **over)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, akey = S.init(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n = sum(t.numel() for t in _tensors(params))
+    print(f"[{label}] {arch}: {n / 1e9:.3f} B parameters on the card in "
+          f"{t_init:.1f}s, {(torch.cuda.memory_allocated() - mem0) / 1e9:.2f}"
+          f" GB (reckoned param_count {cfg.param_count() / 1e9:.3f} B)")
+    return cfg, params, akey, dict(init_s=t_init, n_params=n)
+
+
+def _peak(label, row):
+    import torch
+    row["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{label}] peak allocated {row['peak_allocated_gb']:.2f} GB")
+
+
+def _generate(label, cfg, params, akey, batch, prompt, gen, want=None):
+    """Warm-up, then one counted, timed ``greedy_generate`` (no plain
+    version may run); then one prefill's and one decode step's wall and
+    device time.  ``want``: the launches per kind it must make."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as S
+    from repro_torch.serve import engine
+
+    prompts = S.make_prompts(cfg, batch, prompt, 0, DEV)
+    max_seq = prompt + gen
+    with torch.no_grad():
+        engine.greedy_generate(params, prompts, cfg, n_steps=2,
+                               max_seq=max_seq, akey=akey)     # warm-up
+        torch.cuda.synchronize()
+        with _PlainCalls() as plain:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            toks, cache = engine.greedy_generate(
+                params, prompts, cfg, n_steps=gen, max_seq=max_seq,
+                akey=akey)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = ops.launch_counts()
+        toks = toks.cpu()
+        got = {k: v for k, v in counts.items() if v}
+        print(f"[{label}] tokens {tuple(toks.shape)}, launches {got}, "
+              f"plain-version calls {plain.calls}, {batch * gen / dt:.2f} "
+              f"tok/s after warm-up ({dt:.2f}s for prefill + {gen - 1} "
+              f"decode steps)")
+        check(plain.calls == 0, f"{plain.calls} plain-version calls")
+        check(tuple(toks.shape) == (batch, gen), "wrong token shape")
+        check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              "token out of range")
+        if want is not None:
+            check(got == want, f"launches {got}, expected {want}")
+        shapes = {k: tuple(v.shape) for k, v in cache.items()}
+        del cache
+        prefill = lambda: engine.prefill(params, prompts, cfg,  # noqa
+                                         max_seq=max_seq, akey=akey)
+        logits, cache = prefill()
+        check(tuple(logits.shape) == (batch, 1, cfg.vocab), "logit shape")
+        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        pre = _profile_step(prefill, f"one {cfg.name} prefill (B {batch}, "
+                            f"S {prompt})")
+        dec = _profile_step(lambda: engine.serve_step(
+            params, tok, cache, cfg, akey=engine.decode_step_key(akey, 0)),
+            f"one {cfg.name} decode step (B {batch})")
+        del logits, cache
+    return dict(batch=batch, prompt=prompt, gen=gen, launches=counts,
+                plain_calls=plain.calls, tok_per_s=batch * gen / dt,
+                seconds=dt, cache_shapes=shapes, prefill_profile=pre,
+                decode_profile=dec)
+
+
+def _per_pass(cfg):
+    """Analog reads of one forward pass (prefill or decode step) under a
+    policy that converts every dense site: 7 per attention + MLP layer, 2
+    per SSD block, and the untied unembed."""
+    per_layer = {"dense": 7, "ssm": 2, "hybrid": 9}[cfg.family]
+    return per_layer * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+
+
+def serve_stablelm(results):
+    cfg, params, akey, meta = _load("serve_stablelm", "stablelm_3b",
+                                    POLICY_2P)
+    row = _generate("serve_stablelm", cfg, params, akey, STABLE_BATCH,
+                    STABLE_PROMPT, STABLE_GEN,
+                    want={"managed_read": _per_pass(cfg) * STABLE_GEN})
+    row["continuous"] = _dense_pool("serve_stablelm", cfg, params, akey)
+    _peak("serve_stablelm", row)
+    results["serve_stablelm"] = dict(policy=POLICY_2P, **meta, **row)
+    del params
+    _free()
+
+
+def _dense_pool(label, cfg, params, akey):
+    """S3_STREAM through a 2-slot pool over linear caches: the first
+    request fills its cache and its free row decodes on past the cache's
+    end (a write that must land nowhere); every request completes, its
+    first token is the batch-1 prefill's, and its tokens are finite ids."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import engine
+    from repro_torch.serve import scheduler as sched
+
+    max_seq = STABLE_PROMPT + STABLE_GEN
+    rng = np.random.default_rng(0)
+    reqs = [sched.Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=p)
+                          .astype(np.int32), max_new_tokens=n, arrival=t)
+            for i, (p, n, t) in enumerate(S3_STREAM)]
+    s = sched.ContinuousBatchingScheduler(params, cfg, slots=2,
+                                          max_seq=max_seq, akey=akey)
+    t0 = time.perf_counter()
+    done = {c.rid: c for c in s.run(reqs)}
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    pos = [int(p) for p in s._cache["pos"].cpu()]
+    first, oracle = 0, 0
+    with torch.no_grad():
+        for r in reqs:
+            out, _ = engine.greedy_generate(
+                params, torch.as_tensor(r.prompt, dtype=torch.int64,
+                                        device=DEV)[None],
+                cfg, n_steps=r.max_new_tokens, max_seq=max_seq, akey=akey)
+            out = [int(t) for t in out[0].cpu()]
+            first += out[0] == done[r.rid].tokens[0]
+            oracle += out == done[r.rid].tokens
+    print(f"[{label}] continuous, 2 slots over linear caches of {max_seq}: "
+          f"{len(done)}/{len(reqs)} requests in {dt:.2f}s, final pos {pos} "
+          f"(slot 0 past its cache), first tokens equal to batch-1 "
+          f"greedy_generate's {first}/{len(reqs)}; all tokens equal "
+          f"(not gated: the pool's reads draw other noise) "
+          f"{oracle}/{len(reqs)}")
+    check(sorted(done) == [r.rid for r in reqs]
+          and all(len(done[r.rid].tokens) == r.max_new_tokens
+                  for r in reqs), "the dense pool left a request short")
+    check(pos[0] > max_seq, f"slot 0's pos {pos[0]} never passed the cache")
+    check(all(0 <= t < cfg.vocab for c in done.values() for t in c.tokens),
+          "token out of range")
+    check(first == len(reqs), "a first token differs from the batch-1 "
+                              "prefill's")
+    return dict(max_seq=max_seq, final_pos=pos, seconds=dt,
+                first_tokens_equal=first, oracle_equal=oracle)
+
+
+def _cache_err(label, a, b):
+    """The largest difference over the leaves of two cache trees (the
+    same leaves, shapes and dtypes; positions equal)."""
+    import torch
+    worst = 0.0
+    check(set(a) == set(b), f"{label}: cache leaves {set(a)} vs {set(b)}")
+    for k in a:
+        x, y = a[k].cpu(), b[k].cpu()
+        check(x.shape == y.shape and x.dtype == y.dtype, f"{label}: {k}")
+        if k == "pos":
+            check(torch.equal(x, y), f"{label}: positions differ")
+        else:
+            worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return worst
+
+
+def _smoke_vs_cpu(label, arch, policy, results, steps=4, prompt=40,
+                  flash=(False,)):
+    """The smoke model on the card against the CPU: prefill plus ``steps``
+    decode steps from the same weights, tokens and keys; logits and every
+    cache leaf within FAMILY_ATOL, greedy tokens equal."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer
+    from repro_torch.serve import engine
+    from repro_torch.utils import prng
+
+    cfg0 = dataclasses.replace(S.build_cfg(arch, True, policy),
+                               act_dtype=torch.float32)
+    p_cpu = transformer.init_lm(0, cfg0, device="cpu")
+    p_gpu = _to(p_cpu, DEV)
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg0.vocab, (2, prompt)))
+    for fl in flash:
+        cfg = dataclasses.replace(cfg0, use_flash_kernel=fl)
+        runs = {}
+        for dev, p in (("cpu", p_cpu), (DEV, p_gpu)):
+            key = prng.key(5)
+            with torch.no_grad():
+                lg, cache = engine.prefill(p, toks.to(dev), cfg,
+                                           max_seq=prompt + steps + 1,
+                                           akey=key)
+                out, caches = [lg.cpu()], [{k: v.cpu()
+                                            for k, v in cache.items()}]
+                for i in range(steps):
+                    tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+                    lg, cache = engine.serve_step(
+                        p, tok, cache, cfg,
+                        akey=engine.decode_step_key(key, i))
+                    out.append(lg.cpu())
+                    caches.append({k: v.cpu() for k, v in cache.items()})
+            runs[dev] = (out, caches)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(runs["cpu"][0], runs[DEV][0]))
+        cerr = max(_cache_err(label, a, b)
+                   for a, b in zip(runs["cpu"][1], runs[DEV][1]))
+        same = all(torch.equal(a.argmax(-1), b.argmax(-1))
+                   for a, b in zip(runs["cpu"][0], runs[DEV][0]))
+        what = f"{arch} smoke {policy}" + (f", flash {'on' if fl else 'off'}"
+                                            if len(flash) > 1 else "")
+        print(f"[reference] {what}: prefill + {steps} decode steps, logits "
+              f"max|diff| {err:.2e}, cache leaves {cerr:.2e} (tol "
+              f"{FAMILY_ATOL:g}; leaves {sorted(runs[DEV][1][0])}), greedy "
+              f"tokens equal: {same}")
+        results.setdefault("reference_families", []).append(dict(
+            arch=arch, policy=policy, flash=fl, logit_err=err,
+            cache_err=cerr, tokens_equal=same))
+        check(err <= FAMILY_ATOL and cerr <= FAMILY_ATOL and same,
+              f"{what}: the card disagrees with the CPU reference")
+
+
+def serve_mamba(results):
+    """(i) two-phase BM over single-shot reads; (ii) the temporal route:
+    one #1 read per prompt position and projection in the prefill;
+    (iii) the smoke model, card against CPU."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as S
+    from repro_torch.serve import engine
+
+    cfg, params, akey, meta = _load("serve_mamba", "mamba2_130m", POLICY_2P)
+    row = _generate("serve_mamba", cfg, params, akey, MAMBA_BATCH,
+                    MAMBA_PROMPT, MAMBA_GEN,
+                    want={"managed_read": _per_pass(cfg) * MAMBA_GEN})
+    want = {k: tuple(v.shape) for k, v in engine.init_cache(
+        cfg, MAMBA_BATCH, MAMBA_PROMPT + MAMBA_GEN, device="meta").items()}
+    print(f"[serve_mamba] cache {row['cache_shapes']}")
+    check(row["cache_shapes"] == want and "k" not in want,
+          f"cache {row['cache_shapes']}, init_cache's {want}")
+    _peak("serve_mamba", row)
+    results["serve_mamba"] = dict(policy=POLICY_2P, **meta, **row)
+    del params
+    _free()
+
+    cfg, params, akey, meta = _load("serve_mamba_temporal", "mamba2_130m",
+                                    MAMBA_TEMPORAL)
+    prompts = S.make_prompts(cfg, MAMBA_BATCH, MAMBA_T_PROMPT, 0, DEV)
+    max_seq = MAMBA_T_PROMPT + MAMBA_T_GEN
+    with torch.no_grad(), _PlainCalls() as plain:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill(params, prompts, cfg,
+                                       max_seq=max_seq, akey=akey)
+        torch.cuda.synchronize()
+        pre_wall = time.perf_counter() - t0
+        pre = ops.launch_counts()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks = S.serve("mamba2_130m", batch=MAMBA_BATCH,
+                       prompt_len=MAMBA_T_PROMPT, gen=MAMBA_T_GEN,
+                       params=params, akey=akey, smoke=SMOKE,
+                       analog_policy=MAMBA_TEMPORAL, device=DEV)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        run = ops.launch_counts()
+    want = 2 * cfg.n_layers * MAMBA_T_PROMPT
+    print(f"[serve_mamba_temporal] one prefill (B {MAMBA_BATCH}, S "
+          f"{MAMBA_T_PROMPT}): {pre['noisy_read']} #1 launches (at least "
+          f"{want}: one read per position, projection and layer, each with "
+          f"its iterative-BM retries), {pre_wall * 1e3:.1f} ms wall; the "
+          f"serve entry (prefill + {MAMBA_T_GEN - 1} decode steps) "
+          f"{run['noisy_read']} #1 launches, {MAMBA_BATCH * MAMBA_T_GEN / dt:.2f}"
+          f" tok/s; plain-version calls {plain.calls}")
+    check(pre["noisy_read"] >= want and pre["managed_read"] == 0,
+          f"prefill launches {pre}")
+    check(run["noisy_read"] >= want + 2 * cfg.n_layers * (MAMBA_T_GEN - 1),
+          f"serve launches {run}")
+    check(plain.calls == 0, f"{plain.calls} plain-version calls")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(toks.shape == (MAMBA_BATCH, MAMBA_T_GEN), "wrong token shape")
+    row = dict(policy=MAMBA_TEMPORAL, **meta, prompt=MAMBA_T_PROMPT,
+               prefill_launches=pre, prefill_wall_ms=pre_wall * 1e3,
+               launches=run, tok_per_s=MAMBA_BATCH * MAMBA_T_GEN / dt,
+               seconds=dt)
+    _peak("serve_mamba_temporal", row)
+    results["serve_mamba_temporal"] = row
+    del params, logits, cache
+    _free()
+    for policy in (POLICY_2P, MAMBA_TEMPORAL):
+        _smoke_vs_cpu("reference_mamba", "mamba2_130m", policy, results)
+
+
+class _QKV:
+    """Keeps the inputs of the first flash-attention call while active."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        self.fa, self.fn, self.args = fa, fa.flash_attention, None
+
+        def keep(q, k, v, **kw):
+            if self.args is None:
+                self.args = (q.clone(), k.clone(), v.clone(), kw)
+            return self.fn(q, k, v, **kw)
+        fa.flash_attention = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention = self.fn
+        return False
+
+
+def serve_hymba(results):
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as S
+    from repro_torch.serve import engine
+
+    cfg, params, akey, meta = _load("serve_hymba", "hymba_1_5b", POLICY_2P,
+                                    use_flash_kernel=True)
+    n = cfg.n_layers
+    row = _generate("serve_hymba", cfg, params, akey, HYMBA_BATCH,
+                    HYMBA_PROMPT, HYMBA_GEN,
+                    want={"flash_attention": n,
+                          "managed_read": _per_pass(cfg) * HYMBA_GEN})
+    ring = (n, HYMBA_BATCH, cfg.swa_window, cfg.n_kv_heads, cfg.head_dim)
+    check(row["cache_shapes"]["k"] == ring == row["cache_shapes"]["v"],
+          f"ring cache {row['cache_shapes']}")
+    print(f"[serve_hymba] ring cache k/v {ring}; ssm_conv "
+          f"{row['cache_shapes']['ssm_conv']}, ssm_state "
+          f"{row['cache_shapes']['ssm_state']}")
+    # the prefill's flash share
+    rows = row["prefill_profile"].get("top", [])
+    busy = row["prefill_profile"]["device_busy_ms"]
+    flash = [r for r in row["prefill_profile"].get("kernels", {}).items()
+             if "flash" in r[0]]
+    print(f"[serve_hymba] flash kernel records in the profiled prefill: "
+          f"{flash}; top device operations {[r['kernel'][:40] for r in rows[:3]]}"
+          f", busy {busy}")
+    _peak("serve_hymba", row)
+
+    # #8 at this prefill's own q, k, v (layer 0), against its plain version
+    prompts = S.make_prompts(cfg, HYMBA_BATCH, HYMBA_PROMPT, 0, DEV)
+    with torch.no_grad(), _QKV() as kept:
+        engine.prefill(params, prompts, cfg,
+                       max_seq=HYMBA_PROMPT + HYMBA_GEN, akey=akey)
+    q, k, v, kw = kept.args
+    check(kw.get("window") == cfg.swa_window and kw.get("causal"),
+          f"flash called with {kw}")
+    y = fa.flash_attention(q, k, v, **kw)
+    yp = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    diff = (y.float() - yp.float()).abs()
+    tol = 2e-5 + 2e-5 * yp.float().abs()
+    worst = float((diff / tol).max())
+    good = worst <= 1.0 and bool(torch.isfinite(y).all())
+    case = (f"hymba prefill {tuple(q.shape)} over {tuple(k.shape)} "
+            f"{str(q.dtype)[6:]} window {kw['window']}")
+    print(f"[check] flash_attention {case}: max|diff|={float(diff.max()):.3e}"
+          f" worst |diff|/tol={worst:.3f} (rtol=atol=2e-5) "
+          f"{'ok' if good else 'FAIL'}; q, k, v reach the kernel as "
+          f"{q.dtype} (param_dtype {cfg.param_dtype}, act_dtype "
+          f"{cfg.act_dtype})")
+    results.setdefault("checks", []).append(dict(
+        kernel="flash_attention", case=case, max_abs_err=float(diff.max()),
+        worst_ratio=worst, tol="rtol=atol=2e-5", ok=good))
+    check(good, "flash attention disagrees with its plain version at "
+                "hymba's prefill")
+    results["serve_hymba"] = dict(policy=POLICY_2P, **meta, **row,
+                                  ring_cache=list(ring),
+                                  swa_window=cfg.swa_window,
+                                  qkv_dtype=str(q.dtype))
+    del params, q, k, v, y, yp, kept
+    _free()
+    _smoke_vs_cpu("reference_hymba", "hymba_1_5b", POLICY_2P, results,
+                  flash=(False, True))
+
+
+def _checked_scheduler():
+    """The scheduler with one row check at the first decode tick where a
+    slot is free and another live.  For each live row r, the same step
+    with every other row's cache (live and free) set to NaN: row r's
+    logits must stay bitwise unmoved, so each live row decodes as a batch-1
+    decode would at the pool's shape and under its step key.  Batch-1
+    decodes from each live row (and the same under a second key) are
+    printed beside it, ungated: a batch-1 read draws other noise (a read's
+    counters run over its rows)."""
+    import torch
+    from repro_torch.serve import engine
+    from repro_torch.serve import scheduler as sched
+
+    class Checked(sched.ContinuousBatchingScheduler):
+        report = None
+
+        def _decode_tokens(self, last):
+            live = [i for i, a in enumerate(self._active) if a is not None]
+            if self.report is None and 0 < len(live) < self.slots:
+                self.report = self._row_check(last, live)
+            return super()._decode_tokens(last)
+
+        def _row_check(self, last, live):
+            toks = torch.as_tensor(last, device=DEV)[:, None]
+            key = engine.decode_step_key(self.akey, self._step)
+            other = engine.decode_step_key(self.akey, self._step + 100000)
+            step = lambda t, c, k: engine.serve_step(  # noqa: E731
+                self.params, t, c, self.cfg, akey=k)[0]
+            free = [i for i in range(self.slots) if i not in live]
+            with torch.no_grad():
+                lb = step(toks, self._cache, key)
+                alone = []
+                for r in live:
+                    rest = [i for i in range(self.slots) if i != r]
+                    nan = {}
+                    for k, v in self._cache.items():
+                        v = v.clone()
+                        if k != "pos":
+                            v[:, rest] = float("nan")
+                        nan[k] = v
+                    alone.append(torch.equal(step(toks, nan, key)[r], lb[r]))
+                dist, redraw = [], []
+                for r in live:
+                    c1 = {k: v[r:r + 1] if k == "pos" else v[:, r:r + 1]
+                          for k, v in self._cache.items()}
+                    l1 = step(toks[r:r + 1], c1, key)
+                    l2 = step(toks[r:r + 1], c1, other)
+                    dist.append(float((lb[r] - l1[0]).abs().max()))
+                    redraw.append(float((l2[0] - l1[0]).abs().max()))
+            rep = dict(tick=self._tick, live=live, free=free,
+                       rows_alone_unmoved=alone, dist=dist, redraw=redraw,
+                       finite=bool(torch.isfinite(lb[live]).all()))
+            print(f"[serve_continuous] row check at tick {self._tick} "
+                  f"(live {live}, free {free}): each live row's logits with "
+                  f"every other row's cache NaN bitwise unmoved: {alone}; "
+                  f"not gated: max|batched - batch-1| "
+                  f"{[f'{d:.3g}' for d in dist]}, two batch-1 keys' "
+                  f"{[f'{d:.3g}' for d in redraw]}")
+            return rep
+
+    return Checked
+
+
+def serve_continuous(results):
+    """``launch/serve.py --continuous`` at full width on hymba_1_5b."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as S
+    from repro_torch.serve import engine
+
+    cfg, params, akey, meta = _load("serve_continuous", "hymba_1_5b",
+                                    POLICY_2P)
+    reqs = S.make_requests(cfg, n_requests=Q_REQUESTS, prompt_len=Q_PROMPT,
+                           gen=Q_GEN, slots=Q_SLOTS, seed=0)
+    lens = sorted(len(r.prompt) for r in reqs)
+    print(f"[serve_continuous] {Q_REQUESTS} requests, prompts {lens[0]}-"
+          f"{lens[-1]} tokens (window {cfg.swa_window}: "
+          f"{sum(n > cfg.swa_window for n in lens)} past it), "
+          f"{sum(r.max_new_tokens for r in reqs)} new tokens")
+    max_seq = Q_PROMPT + Q_GEN
+    Checked = _checked_scheduler()
+    with _PlainCalls() as plain:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = S.serve_continuous(
+            "hymba_1_5b", slots=Q_SLOTS, n_requests=Q_REQUESTS,
+            prompt_len=Q_PROMPT, gen=Q_GEN, params=params, akey=akey,
+            smoke=SMOKE, analog_policy=POLICY_2P, device=DEV)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    check(plain.calls == 0, f"{plain.calls} plain-version calls")
+    n_tok = sum(len(c.tokens) for c in done)
+    check(sorted(c.rid for c in done) == list(range(Q_REQUESTS)),
+          "not every request completed")
+    by_rid = {r.rid: r for r in reqs}
+    check(all(len(c.tokens) == by_rid[c.rid].max_new_tokens for c in done),
+          "a request stopped short")
+
+    # the same stream through the checked scheduler: its event log and
+    # tokens, then the first requests it admitted alone
+    from repro_torch.serve import scheduler as sched
+    s1 = Checked(params, cfg, slots=Q_SLOTS, max_seq=max_seq, akey=akey)
+    d1 = s1.run(reqs)
+    check([dataclasses.astuple(c) for c in d1]
+          == [dataclasses.astuple(c) for c in done],
+          "a second run of the stream differs from the first")
+    first = [e.rid for e in s1.events if e.kind == "admit"][:Q_REPLAY]
+    s2 = sched.ContinuousBatchingScheduler(params, cfg, slots=Q_SLOTS,
+                                           max_seq=max_seq, akey=akey)
+    d2 = s2.run([by_rid[i] for i in first])
+    same_events = s2.events == [e for e in s1.events if e.rid in first]
+    tok1 = {c.rid: c.tokens for c in d1}
+    same_tokens = all(c.tokens == tok1[c.rid] for c in d2)
+    print(f"[serve_continuous] the first {Q_REPLAY} requests admitted "
+          f"({first}) alone: event log equal to the full run's: "
+          f"{same_events}, tokens equal: {same_tokens}")
+    rep = s1.report
+    check(rep is not None, "no tick had a free and a live slot")
+    check(all(rep["rows_alone_unmoved"]) and rep["finite"],
+          "another row's state moved a live row's logits")
+    check(same_events and same_tokens, "the replay differs")
+
+    # per-request oracles: the first token gated, the rest counted
+    first_equal, oracle_equal = 0, 0
+    with torch.no_grad():
+        for c in done:
+            r = by_rid[c.rid]
+            out, _ = engine.greedy_generate(
+                params, torch.as_tensor(r.prompt, dtype=torch.int64,
+                                        device=DEV)[None],
+                cfg, n_steps=r.max_new_tokens, max_seq=max_seq, akey=akey)
+            out = [int(t) for t in out[0].cpu()]
+            first_equal += out[0] == c.tokens[0]
+            oracle_equal += out == c.tokens
+    print(f"[serve_continuous] {len(done)}/{Q_REQUESTS} requests, {n_tok} "
+          f"tokens over {Q_SLOTS} slots in {dt:.2f}s: {len(done) / dt:.3f} "
+          f"req/s, {n_tok / dt:.2f} tok/s; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; first tokens equal "
+          f"to batch-1 greedy_generate's: {first_equal}/{len(done)}; all "
+          f"tokens equal to the per-request oracle's (not gated: the pool's "
+          f"reads draw other noise): {oracle_equal}/{len(done)}")
+    check(first_equal == len(done), "a first token differs from the "
+                                    "batch-1 prefill's")
+    row = dict(policy=POLICY_2P, **meta, slots=Q_SLOTS,
+               requests=Q_REQUESTS, prompt_len=Q_PROMPT, gen=Q_GEN,
+               seconds=dt, req_per_s=len(done) / dt, tok_per_s=n_tok / dt,
+               launches=counts, plain_calls=plain.calls, replay=first,
+               row_check=rep, first_tokens_equal=first_equal,
+               oracle_equal=oracle_equal)
+    _peak("serve_continuous", row)
+    results["serve_continuous"] = row
+    del params
+    _free()
+    slice16_kernel_times(results)
+
+
+def _sdpa_backend(sdpa, q, k, v, mask):
+    """The backend SDPA's dispatcher picks for these inputs, and the device
+    kernels five profiled calls ran (a single call can leave no record)."""
+    import torch
+    try:
+        from torch.nn.attention import SDPBackend
+        choice = SDPBackend(torch._fused_sdp_choice(q, k, v, mask, 0.0,
+                                                    False)).name
+    except Exception as e:             # a private API: name what failed
+        choice = f"not read ({type(e).__name__})"
+    prof = _profiled(lambda: [sdpa() for _ in range(5)])
+    kernels = sorted({ev.key[:60] for ev in prof.key_averages()
+                      if str(getattr(ev, "device_type", "")).endswith("CUDA")
+                      and (getattr(ev, "self_device_time_total", 0) or 0)})
+    return dict(choice=choice, kernels=kernels)
+
+
+def slice16_kernel_times(results):
+    """#2 at mamba2's and hymba's in_proj shapes (B = batch and batch x
+    prompt), #1 at the temporal route's per-position read, and #8 at
+    hymba's prefill (float32, window 1024) against SDPA with the same
+    mask, naming the kernel SDPA ran."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import managed_mvm as km
+    from repro_torch.kernels import noisy_mvm as kn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = results.setdefault("times", [])
+    # (name, rows, cols with the bias column, batches): the tiles'
+    # physical shapes
+    reads = [("mamba2 in_proj 3352x769", 3352, 769,
+              (MAMBA_BATCH, MAMBA_BATCH * MAMBA_PROMPT)),
+             ("hymba in_proj 6482x1601", 6482, 1601,
+              (HYMBA_BATCH, HYMBA_BATCH * HYMBA_PROMPT))]
+    for name, r, c, batches in reads:
+        for b in batches:
+            w, x = _inputs(b, r, c, False, seed=16)
+            nm = torch.amax(x.abs(), dim=1, keepdim=True)
+            mkw = dict(sigma=SIGMA, alpha=ALPHA, n_seg=1, two_phase=True,
+                       retry_scale=16.0)
+            y, s = km.managed_mvm(w, x, nm, (3, 4), **mkw)
+            yp, sp = km.managed_mvm_plain(w, x, nm, (3, 4), **mkw)
+            mag = float((x.abs() @ w.abs().T).max())
+            check(_read_check(results, "managed_mvm", f"{name} B={b} NM", y,
+                              yp, s, sp, mag), "#2 disagrees")
+            _time_row(rows, "managed_mvm", f"{name} B={b}",
+                      lambda: km.managed_mvm(w, x, nm, (3, 4), **mkw),
+                      lambda: km.managed_mvm_plain(w, x, nm, (3, 4), **mkw),
+                      lambda: torch.matmul(x, w.T),
+                      4 * (r * c + b * c + b * r + 2 * b), 2.0 * b * r * c,
+                      0.0, batch=b)
+            del w, x, y, yp
+    r, c, b = 3352, 769, MAMBA_BATCH
+    w, x = _inputs(b, r, c, False, seed=17)
+    kw = dict(sigma=SIGMA, alpha=ALPHA, n_seg=1)
+    y, s = kn.noisy_mvm(w, x, 99, **kw)
+    yp, sp = kn.noisy_mvm_plain(w, x, 99, **kw)
+    mag = float((x.abs() @ w.abs().T).max())
+    check(_read_check(results, "noisy_mvm", f"mamba2 in_proj temporal B={b}",
+                      y, yp, s, sp, mag), "#1 disagrees")
+    _time_row(rows, "noisy_mvm", f"mamba2 in_proj 3352x769 temporal B={b}",
+              lambda: kn.noisy_mvm(w, x, 99, **kw),
+              lambda: kn.noisy_mvm_plain(w, x, 99, **kw),
+              lambda: torch.matmul(x, w.T),
+              4 * (r * c + b * c + b * r + b), 2.0 * b * r * c, 0.0,
+              batch=b)
+    del w, x, y, yp
+
+    b, sq, h, hkv, d, win = HYMBA_BATCH, HYMBA_PROMPT, 25, 5, 64, 1024
+    g = torch.Generator(device=DEV).manual_seed(716)
+    q, k, v = _qkv(g, b, sq, sq, h, hkv, d, torch.float32)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+    i = torch.arange(sq, device=DEV)
+    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < win)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,  # noqa
+                                                  attn_mask=mask)
+    lib_err = float((sdpa().transpose(1, 2) - fa.flash_attention_plain(
+        q, k, v, window=win)).abs().max())
+    backend = _sdpa_backend(sdpa, qt, kt, vt, mask)
+    pairs = sum(min(j + 1, win) for j in range(sq))
+    _time_row(rows, "flash_attention",
+              f"hymba prefill float32 window {win}",
+              lambda: fa.flash_attention(q, k, v, window=win),
+              lambda: fa.flash_attention_plain(q, k, v, window=win), sdpa,
+              (2 * q.numel() + k.numel() + v.numel()) * 4,
+              4.0 * pairs * d * b * h, 0.0, batch=b)
+    rows[-1].update(library_kernels=backend, library_max_abs_err=lib_err)
+    print(f"[time] SDPA with the window mask ran {backend}; max|SDPA - "
+          f"plain| {lib_err:.2e}")
+    del q, k, v, qt, kt, vt
+    _free()
+
+
 def summary_line(results):
     """One entry per kernel at the shape named in KERNELS (decode wg/wi
     11008x4096, B=4, for the read kernels; LeNet's K1, W3 or K1 BL=1 for the
@@ -3822,6 +4531,23 @@ def summary_line(results):
                 kernels[-1]["lm_time"] = {k: t[k] for k in (
                     "shape", "batch", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms")}
+        if meta["kind"] in ("noisy_read", "managed_read",
+                            "flash_attention"):
+            # and in the serving runs of s3, m, y and q (each a counted
+            # greedy_generate, the temporal route's serve entry, q's first
+            # run of the stream), with times at their shapes
+            kernels[-1]["launches_families"] = {
+                name: results[name]["launches"][meta["kind"]]
+                for name in FAMILY_RUNS
+                if results[name]["launches"].get(meta["kind"])}
+            kernels[-1]["families_time"] = [
+                {k: r[k] for k in ("shape", "batch", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for r in results["times"] if r["kernel"] == kname
+                and r["shape"].startswith(("mamba2", "hymba"))]
+            if meta["kind"] == "flash_attention":
+                kernels[-1]["window"] = results["serve_hymba"][
+                    "swa_window"]
         if meta["kind"] in ("noisy_read", "managed_read", "pulse_counts"):
             # and in g4's chunked 20-step epochs (warm-up step included)
             kernels[-1]["launches_stream"] = {
@@ -3865,6 +4591,13 @@ PHASES = [
     ("c", "full-size serve, two-phase BM", serve_two_phase),
     ("d", "full-size serve, iterative BM", serve_iterative),
     ("s", "full-size qwen3_14b serve with the flash kernel", serve_qwen3),
+    ("s3", "full-size stablelm_3b serve, two-phase BM", serve_stablelm),
+    ("m", "full-size mamba2_130m serve: single-shot and temporal reads; "
+     "the smoke model, card vs CPU", serve_mamba),
+    ("y", "full-size hymba_1_5b serve with the windowed flash kernel; the "
+     "smoke model, card vs CPU, flash off and on", serve_hymba),
+    ("q", "continuous batching at full width on hymba_1_5b, and the "
+     "slice's kernel times", serve_continuous),
     ("r", "small-input reference (card vs CPU)", smoke_reference),
     ("r3", "qwen3 smoke model, card vs CPU, flash off and on",
      smoke_reference_qwen3),

@@ -153,7 +153,10 @@ def from_jax_params(tree: Params, *, device="cuda") -> Params:
     materialized (the JAX meta object is read by attribute, a conv layer's
     geometry from ``meta.conv``).  Stacked sites — under the ``layers`` key
     every leaf has a leading layer axis — are unstacked into a list of
-    per-layer dicts, one tile per layer.
+    per-layer dicts, one tile per layer.  Leaves that are not dense sites
+    (an SSD block's ``conv_w``, ``A_log``, ``D``, ``dt_bias`` and norm)
+    come across as tensors, and a tree without ``unembed`` (tied
+    embeddings) stays without it.
     """
     def leaf(a) -> torch.Tensor:
         a = np.array(a, copy=True)

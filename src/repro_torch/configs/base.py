@@ -1,10 +1,12 @@
-"""Model configuration dataclass (dense decoder family).
+"""Model configuration dataclasses (the dense, ssm and hybrid families).
 
 Each ``configs/<id>.py`` exports ``CONFIG`` (the published numbers) and
 ``smoke_config()`` (a reduced same-family config for CPU tests); the
-``registry`` resolves ``--arch`` names.  Only the dense family is ported:
-MoE, SSM, hybrid and encoder-decoder stacks, QKV bias, sliding-window
-attention and the int8 KV cache are not part of this package yet.
+``registry`` resolves ``--arch`` names.  The dense decoder, the Mamba-2
+SSD stack (``ssm``) and Hymba's parallel attention + SSD heads
+(``hybrid``) are ported, with sliding-window attention (``swa_window``)
+and tied embeddings.  MoE, VLM and encoder-decoder stacks, QKV bias and
+the int8 KV cache are not part of this package yet.
 
 Training: ``remat`` recomputes each layer block in the backward
 (``torch.utils.checkpoint``; ``remat_policy='full'``).  The JAX package's
@@ -30,9 +32,22 @@ LEGACY_ANALOG_SCOPE = ("*/attn/*", "*/cross/*", "*/mlp/*", "*/ssm/*",
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int                 # N (ssm_state)
+    d_head: int = 64             # SSD head dim P
+    expand: int = 2              # d_inner = expand * d_model
+    chunk: int = 128             # SSD chunk length
+    d_conv: int = 4              # short causal conv width
+
+
+#: The families this package runs.
+FAMILIES = ("dense", "ssm", "hybrid")
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense
+    family: str                  # dense | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -41,7 +56,10 @@ class ModelConfig:
     vocab: int
     d_head: Optional[int] = None          # default d_model // n_heads
     qk_norm: bool = False                 # qwen3: RMSNorm of q and k heads
+    swa_window: int = 0                   # sliding-window attention (hymba)
     rope_theta: float = 1e4
+    tie_embeddings: bool = False          # logits = x @ embed.table.T
+    ssm: Optional[SSMConfig] = None       # ssm / hybrid families
     norm_eps: float = 1e-5
     # numerics
     param_dtype: torch.dtype = torch.bfloat16
@@ -60,9 +78,10 @@ class ModelConfig:
     analog: Optional[RPUConfig] = None
 
     def __post_init__(self):
-        if self.family != "dense":
+        if self.family not in FAMILIES:
             raise NotImplementedError(
-                f"only the dense family is ported, got {self.family!r}")
+                f"family {self.family!r}: the port runs {FAMILIES}; the "
+                "moe, vlm and audio families wait (ROADMAP Queue 1, item 6)")
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
 
@@ -88,11 +107,18 @@ class ModelConfig:
     def param_count(self) -> int:
         """Approximate parameter count (embeddings + blocks), for 6ND."""
         d, hd = self.d_model, self.head_dim
-        emb = 2 * self.vocab * d                  # untied embed + unembed
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
             + self.n_heads * hd * d
-        return emb + self.n_layers * (attn + 3 * d * self.d_ff)
+        ffn = 3 * d * self.d_ff
+        ssm = 0
+        if self.ssm is not None:
+            din = self.ssm.expand * d
+            ssm = d * (2 * din + 2 * self.ssm.d_state) + din * d
+        block = {"ssm": ssm, "hybrid": attn + ffn + ssm}.get(self.family,
+                                                             attn + ffn)
+        return emb + self.n_layers * block
 
     def active_param_count(self) -> int:
-        """Active params per token: all of them in the dense family."""
+        """Active params per token: all of them (no MoE family here)."""
         return self.param_count()

@@ -1,7 +1,8 @@
 """--arch registry: resolves architecture ids to configs.
 
 Each ``configs/<id>.py`` exports ``CONFIG`` (published numbers) and
-``smoke_config()``.  The dense models deepseek_7b and qwen3_14b are
+``smoke_config()``.  The dense models deepseek_7b, qwen3_14b and
+stablelm_3b, the ssm model mamba2_130m and the hybrid hymba_1_5b are
 ported so far.
 """
 
@@ -11,9 +12,12 @@ import dataclasses
 import importlib
 from typing import List
 
-ARCH_IDS: List[str] = ["deepseek_7b", "qwen3_14b"]
+ARCH_IDS: List[str] = ["deepseek_7b", "stablelm_3b", "qwen3_14b",
+                       "mamba2_130m", "hymba_1_5b"]
 
-_ALIASES = {"deepseek-7b": "deepseek_7b", "qwen3-14b": "qwen3_14b"}
+_ALIASES = {"deepseek-7b": "deepseek_7b", "stablelm-3b": "stablelm_3b",
+            "qwen3-14b": "qwen3_14b", "mamba2-130m": "mamba2_130m",
+            "hymba-1.5b": "hymba_1_5b"}
 
 
 def canonical(name: str) -> str:

@@ -1,15 +1,24 @@
 """Serving driver: static batched greedy decode (prefill + ``gen - 1``
-decode steps) of random weights drawn from ``--seed``.
+decode steps) or continuous batching, of random weights drawn from
+``--seed``.
 
   python -m repro_torch.launch.serve --arch deepseek_7b \\
       --analog-policy 'lm_managed:use_pallas=true:bm_mode=two_phase' \\
       --batch 4 --prompt-len 32 --gen 16
 
-``--analog-policy`` takes the JAX package's spec language (a preset with
-``:field=value`` modifiers, inline first-match-wins rules, or a JSON rules
-file) and prints the resolved per-layer policy table.  Runs on the card
-(``--device cuda``, the default) unless ``--device cpu`` is given.  The
-continuous-batching scheduler is not part of this package yet.
+Continuous (``--continuous``): rotate a synthetic request stream through a
+fixed pool of cache slots (``serve/scheduler.py``), requests admitted
+mid-decode as slots free up:
+
+  python -m repro_torch.launch.serve --arch hymba_1_5b --smoke \\
+      --continuous --slots 4 --requests 16 --analog-policy lm_managed
+
+``--arch`` takes every arch of ``configs/registry.py``: the dense
+deepseek_7b, stablelm_3b and qwen3_14b, the ssm mamba2_130m and the hybrid
+hymba_1_5b.  ``--analog-policy`` takes the JAX package's spec language (a
+preset with ``:field=value`` modifiers, inline first-match-wins rules, or a
+JSON rules file) and prints the resolved per-layer policy table.  Runs on
+the card (``--device cuda``, the default) unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -84,6 +93,51 @@ def serve(arch: str, *, batch: int, prompt_len: int, gen: int,
     return out
 
 
+def make_requests(cfg, *, n_requests: int, prompt_len: int, gen: int,
+                  slots: int, seed: int):
+    """The JAX driver's synthetic stream: prompt lengths in [P/2, P], new
+    tokens in [G/2, G], Poisson arrivals spread over the slots."""
+    from repro_torch.serve import scheduler as sched
+    rng = np.random.default_rng(seed)
+    return [sched.Request(
+        rid=i,
+        prompt=rng.integers(0, cfg.vocab,
+                            size=max(1, int(rng.integers(
+                                prompt_len // 2, prompt_len + 1)))
+                            ).astype(np.int32),
+        max_new_tokens=max(1, int(rng.integers(gen // 2, gen + 1))),
+        arrival=int(rng.poisson(1.0) * i // max(1, slots)))
+        for i in range(n_requests)]
+
+
+def serve_continuous(arch: str, *, slots: int, n_requests: int,
+                     prompt_len: int, gen: int, smoke: bool = False,
+                     seed: int = 0, analog_policy: Optional[str] = None,
+                     data_mesh: Optional[int] = None, device="cuda",
+                     params=None, akey=None):
+    """Continuous batching over a synthetic Poisson request stream; returns
+    the completions.  ``params``/``akey`` reuse an earlier ``init``."""
+    from repro_torch.serve import scheduler as sched
+    cfg = build_cfg(arch, smoke, analog_policy)
+    if params is None:
+        params, akey = init(cfg, seed, device)
+    plan = sched.MeshPlan(data=data_mesh) if data_mesh else None
+    reqs = make_requests(cfg, n_requests=n_requests, prompt_len=prompt_len,
+                         gen=gen, slots=slots, seed=seed)
+    s = sched.ContinuousBatchingScheduler(params, cfg, slots=slots,
+                                          max_seq=prompt_len + gen,
+                                          akey=akey, plan=plan)
+    t0 = time.perf_counter()
+    done = s.run(reqs)
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(c.tokens) for c in done)
+    print(f"[serve {arch}] continuous: {len(done)}/{n_requests} requests, "
+          f"{n_tok} tokens over {slots} slots in {dt:.1f}s "
+          f"({len(done) / dt:.1f} req/s, {n_tok / dt:.1f} tok/s) on "
+          f"{device}")
+    return done
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -101,10 +155,30 @@ def main():
                          "'lm_managed:use_pallas=true:bm_mode=two_phase'), "
                          "inline 'pattern=preset' rules, or a JSON rules "
                          "file")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching: admit a synthetic request "
+                         "stream mid-decode into freed cache slots "
+                         "(serve/scheduler.py) instead of one static batch")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="cache slots (max concurrent decodes) with "
+                         "--continuous")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="synthetic requests to stream with --continuous")
+    ap.add_argument("--data-mesh", type=int, default=None, metavar="N",
+                    help="with --continuous: shard the cache slots over N "
+                         "data replicas (above 1 raises: one card)")
     args = ap.parse_args()
-    serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
-          gen=args.gen, smoke=args.smoke, seed=args.seed,
-          analog_policy=args.analog_policy, device=args.device)
+    if args.continuous:
+        serve_continuous(args.arch, slots=args.slots,
+                         n_requests=args.requests,
+                         prompt_len=args.prompt_len, gen=args.gen,
+                         smoke=args.smoke, seed=args.seed,
+                         analog_policy=args.analog_policy,
+                         data_mesh=args.data_mesh, device=args.device)
+    else:
+        serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+              gen=args.gen, smoke=args.smoke, seed=args.seed,
+              analog_policy=args.analog_policy, device=args.device)
 
 
 if __name__ == "__main__":

@@ -268,14 +268,19 @@ def lm_config(arch: str, *, smoke: bool, analog: bool = False,
               update_chunk: Optional[int] = None):
     """The LM config of the driver's flags, with the JAX driver's refusals;
     analog configs train float32 params."""
+    dense = [a for a in registry.ARCH_IDS
+             if registry.get_config(a).family == "dense"]
     try:
         cfg = registry.get_config(arch, smoke=smoke)
     except KeyError:
+        cfg = None
+    if cfg is None or cfg.family != "dense":
+        # the ssm and hybrid families serve (launch/serve.py) but do not
+        # train yet: their temporal backward through the SSD projections
         raise NotImplementedError(
-            f"--arch {arch!r}: the port trains the dense LMs "
-            f"{registry.ARCH_IDS} and the recurrent cells {SEQ_ARCHS}; the "
-            "MoE, SSM, hybrid and encoder-decoder families wait (ROADMAP "
-            "Queue 1, item 6)") from None
+            f"--arch {arch!r}: the port trains the dense LMs {dense} and "
+            f"the recurrent cells {SEQ_ARCHS}; the ssm, hybrid, MoE and "
+            "encoder-decoder families wait (ROADMAP Queue 1, item 6)")
     if fuse_bwd_update and not use_pallas and not analog_policy:
         raise ValueError("--fuse-bwd-update requires --use-pallas (the "
                          "fused backward+update cycle is a kernel launch)")
@@ -479,8 +484,9 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help=f"an LM ({', '.join(registry.ARCH_IDS)}) or a "
-                         f"recurrent cell ({', '.join(SEQ_ARCHS)})")
+                    help="a dense LM of the registry (deepseek_7b, "
+                         "stablelm_3b, qwen3_14b) or a recurrent cell "
+                         f"({', '.join(SEQ_ARCHS)})")
     ap.add_argument("--steps", type=int, default=100,
                     help="train steps (epochs over the copy-task split for "
                          "lstm/gru)")

@@ -1,5 +1,7 @@
-"""Grouped-query causal self-attention with optional qk RMS-norm (qwen3):
-online-softmax prefill and single-token decode over a KV cache.
+"""Grouped-query causal self-attention with optional qk RMS-norm (qwen3)
+and a sliding window (hymba): online-softmax prefill and single-token
+decode over a KV cache, a ring buffer of ``swa_window`` slots when the
+cache holds exactly that many.
 
 The projections go through ``layers.dense_apply``, so an analog policy
 turns them into managed array reads; their read keys are
@@ -61,10 +63,12 @@ def _repeat_kv(k: Tensor, n_rep: int) -> Tensor:
     return torch.repeat_interleave(k, n_rep, dim=-2)
 
 
-def _flash(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, chunk_q: int,
-           chunk_k: int) -> Tensor:
+def _flash(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, window: int = 0,
+           chunk_q: int, chunk_k: int, q_offset: int = 0) -> Tensor:
     """Online-softmax chunked attention.  q: (B, Sq, H, D); k, v: (B, Sk,
-    H, D) (kv already head-repeated)."""
+    H, D) (kv already head-repeated).  ``window > 0`` keeps keys with
+    ``q - k < window``; ``q_offset`` is the absolute position of q[0]
+    relative to k[0]."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     cq, ck = min(chunk_q, sq), min(chunk_k, sk)
@@ -76,7 +80,7 @@ def _flash(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, chunk_q: int,
     for q0 in range(0, sq, cq):
         q_blk = qh[:, :, q0:q0 + cq]
         nq = q_blk.shape[2]
-        q_pos = torch.arange(nq, device=q.device) + q0
+        q_pos = torch.arange(nq, device=q.device) + q0 + q_offset
         m = torch.full((b, h, nq), NEG_INF, dtype=torch.float32,
                        device=q.device)
         l_ = torch.zeros((b, h, nq), dtype=torch.float32, device=q.device)
@@ -87,8 +91,13 @@ def _flash(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, chunk_q: int,
             s = torch.einsum("bhqd,bhkd->bhqk", q_blk.float(),
                              k_blk.float()) * scale
             k_pos = torch.arange(k_blk.shape[2], device=q.device) + k0
+            mask = None
             if causal:
                 mask = q_pos[:, None] >= k_pos[None, :]
+            if window > 0:
+                near = q_pos[:, None] - k_pos[None, :] < window
+                mask = near if mask is None else mask & near
+            if mask is not None:
                 s = torch.where(mask[None, None], s,
                                 torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(-1))
@@ -121,11 +130,13 @@ def forward(p, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
                 "the flash-attention kernel has no backward; train with "
                 "use_flash_kernel=False (the chunked attention)")
         with torch.profiler.record_function("flash_attention"):
-            out = fa.flash_attention(q, k, v, causal=True, window=0)
+            out = fa.flash_attention(q, k, v, causal=True,
+                                     window=cfg.swa_window)
     else:
         n_rep = cfg.n_heads // cfg.n_kv_heads
         out = _flash(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
-                     causal=True, chunk_q=chunk_q, chunk_k=chunk_k)
+                     causal=True, window=cfg.swa_window, chunk_q=chunk_q,
+                     chunk_k=chunk_k)
     out = out.reshape(*out.shape[:-2], cfg.n_heads * cfg.head_dim)
     okey = None if akey is None else prng.fold_in(akey, 3)
     y = L.dense_apply(p["o"], out, key=okey)
@@ -136,22 +147,32 @@ def forward(p, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
 
 def _scatter_time(cache: Tensor, new: Tensor, slot: Tensor) -> Tensor:
     """cache (B,S,H,D) <- new (B,1,H,D) at per-batch time index ``slot``
-    (a new tensor; the input cache is left as it was)."""
-    out = cache.clone()
-    out[torch.arange(cache.shape[0], device=cache.device), slot] = \
-        new[:, 0].to(cache.dtype)
-    return out
+    (a new tensor).  A one-hot write, as in the JAX package: a row whose
+    slot lies past the cache (a free pool row decoding on) writes
+    nothing."""
+    oh = torch.arange(cache.shape[1], device=cache.device)[None, :] \
+        == slot[:, None]                                        # (B,S)
+    return torch.where(oh[:, :, None, None], new.to(cache.dtype), cache)
+
+
+def _ring(cfg: ModelConfig, cache: Tensor) -> bool:
+    """The cache is a ring of ``swa_window`` slots (a cache shorter than
+    the window, ``max_seq < swa_window``, is linear)."""
+    return cfg.swa_window > 0 and cache.shape[1] == cfg.swa_window
 
 
 def decode(p, x_t: Tensor, cache_k: Tensor, cache_v: Tensor, pos: Tensor,
            cfg: ModelConfig, *, akey=None):
     """Single-token decode.  x_t: (B, 1, d); cache_k/v: (B, S_cache, Hkv,
-    hd), written at ``pos``.  Returns (y, new_k, new_v)."""
+    hd), written at ``pos`` (a ring: at ``pos % swa_window``).  Returns
+    (y, new_k, new_v)."""
     q, k_new, v_new = _project_qkv(p, x_t, x_t, cfg, akey)
     q = L.rope(q, pos[..., None], cfg.rope_theta)
     k_new = L.rope(k_new, pos[..., None], cfg.rope_theta)
-    cache_k = _scatter_time(cache_k, k_new, pos)
-    cache_v = _scatter_time(cache_v, v_new, pos)
+    ring = _ring(cfg, cache_k)
+    slot = pos % cfg.swa_window if ring else pos
+    cache_k = _scatter_time(cache_k, k_new, slot)
+    cache_v = _scatter_time(cache_v, v_new, slot)
 
     n_rep = cfg.n_heads // cfg.n_kv_heads
     kk = _repeat_kv(cache_k, n_rep)
@@ -159,7 +180,14 @@ def decode(p, x_t: Tensor, cache_k: Tensor, cache_v: Tensor, pos: Tensor,
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) \
         * (cfg.head_dim ** -0.5)
     k_pos = torch.arange(cache_k.shape[1], device=x_t.device)
-    mask = (k_pos[None, :] <= pos[:, None])[:, None, None, :]
+    if ring:
+        # slot s holds absolute position pos - age, age = (pos - s) mod
+        # window; valid once written
+        w = cfg.swa_window
+        age = (pos[:, None] % w - k_pos[None, :]) % w
+        mask = ((pos[:, None] - age) >= 0)[:, None, None, :]
+    else:
+        mask = (k_pos[None, :] <= pos[:, None])[:, None, None, :]
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     a = torch.softmax(s, dim=-1).to(vv.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", a, vv)

@@ -108,3 +108,8 @@ def embed_apply(p: Params, tokens: Tensor) -> Tensor:
     # F.embedding's backward sums repeated tokens in a fixed order on the
     # card (an indexing gather's backward accumulates with atomics)
     return torch.nn.functional.embedding(tokens, p["table"])
+
+
+def unembed_apply(p: Params, x: Tensor) -> Tensor:
+    """Logits through the tied embedding table: ``x @ table.T``."""
+    return x @ p["table"].to(x.dtype).T

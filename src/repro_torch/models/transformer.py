@@ -1,10 +1,20 @@
-"""Dense decoder stack: pre-norm residual blocks of [attention + SwiGLU],
-RMSNorm, RoPE, untied unembedding.
+"""Decoder stacks by family: pre-norm residual blocks, RMSNorm, RoPE.
+
+  dense  : [attn + SwiGLU]
+  ssm    : [SSD]                      (mamba2: no attention, no MLP)
+  hybrid : [attn || SSD  + SwiGLU]    (hymba: parallel heads, averaged)
+
+The unembedding is its own projection, or the embedding table with
+``tie_embeddings`` (mamba2).
 
 Parameters are plain dicts; the layers of the stack are a Python list of
 per-layer dicts walked by a Python loop (the JAX package scans over stacked
 layers).  Analog mode threads a per-layer key ``fold_in(akey, layer)``
-through every projection, and ``fold_in(akey, 203)`` through the unembed.
+through every projection, and ``fold_in(akey, 203)`` through an untied
+unembed.  A hybrid block's SSD branch reads under ``fold_in(akey, 101)``
+in ``_block_apply`` and ``block_decode``, but under the layer key itself
+in ``block_prefill``, where its ``in_proj`` read shares the attention's q
+key: the JAX package's keys, copied as they are.
 
 :func:`forward` is the training forward (``transformer.py:65-235`` of the
 JAX package: ``_block_apply``, ``_scan_layers``, ``forward``).  With
@@ -23,7 +33,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers as L, mlp
+from repro_torch.models import attention, layers as L, mlp, ssm
 from repro_torch.utils import prng
 
 Tensor = torch.Tensor
@@ -31,20 +41,26 @@ Params = Dict[str, Any]
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    return {
-        "ln_attn": L.rmsnorm_init(cfg.d_model, cfg.param_dtype, device),
-        "attn": attention.init(gen, cfg, device),
-        "ln_ffn": L.rmsnorm_init(cfg.d_model, cfg.param_dtype, device),
-        "mlp": mlp.init(gen, cfg, device),
-    }
+    p: Params = {}
+    if cfg.family != "ssm":
+        p["ln_attn"] = L.rmsnorm_init(cfg.d_model, cfg.param_dtype, device)
+        p["attn"] = attention.init(gen, cfg, device)
+    if cfg.family in ("ssm", "hybrid"):
+        p["ln_ssm"] = L.rmsnorm_init(cfg.d_model, cfg.param_dtype, device)
+        p["ssm"] = ssm.init(gen, cfg, device)
+    if cfg.family != "ssm":
+        p["ln_ffn"] = L.rmsnorm_init(cfg.d_model, cfg.param_dtype, device)
+        p["mlp"] = mlp.init(gen, cfg, device)
+    return p
 
 
 def _jax_draws(seed: int, cfg: ModelConfig, device) -> Params:
     """The JAX package's ``init_lm`` weights for ``key(seed)``: its key
-    tree (``split(key, 6)``; per layer ``split(split(k1, L)[l], 8)``, q, k,
-    v, o from ``split(., 4)`` of the first, wi, wg, wo from ``split(., 3)``
-    of the fourth), each weight ``scale * truncated_normal(-2, 2)`` drawn
-    on the host (``prng.truncated_normal``, within 3 ulp of JAX's)."""
+    tree (``split(key, 6)``; per layer ``split(split(k1, L)[l], 8)``: q, k,
+    v, o from ``split(., 4)`` of the first, the SSD block's from ``split(.,
+    6)`` of the third, wi, wg, wo from ``split(., 3)`` of the fourth), each
+    weight ``scale * truncated_normal(-2, 2)`` drawn on the host
+    (``prng.truncated_normal``, within 3 ulp of JAX's)."""
     def tn(k, shape, scale):
         z = np.float32(scale) * prng.truncated_normal(k, -2.0, 2.0, shape)
         return torch.from_numpy(z).to(device=device, dtype=cfg.param_dtype)
@@ -54,28 +70,50 @@ def _jax_draws(seed: int, cfg: ModelConfig, device) -> Params:
         # (d_out, d_in) tensor exposed transposed (``L.dense_init``)
         return {"w": tn(k, (d_in, d_out), d_in ** -0.5).T.contiguous().T}
 
+    def norm(d):
+        return L.rmsnorm_init(d, cfg.param_dtype, device)
+
     d, h, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                         cfg.head_dim, cfg.d_ff)
     ks = prng.split(prng.key(seed), 6)
     layers = []
     for lk in prng.split(ks[1], cfg.n_layers):
         kb = prng.split(lk, 8)
-        ka, km = prng.split(kb[0], 4), prng.split(kb[3], 3)
-        attn = {"q": dense(ka[0], d, h * hd), "k": dense(ka[1], d, hkv * hd),
-                "v": dense(ka[2], d, hkv * hd), "o": dense(ka[3], h * hd, d)}
-        if cfg.qk_norm:
-            attn["q_norm"] = L.rmsnorm_init(hd, cfg.param_dtype, device)
-            attn["k_norm"] = L.rmsnorm_init(hd, cfg.param_dtype, device)
-        layers.append({
-            "ln_attn": L.rmsnorm_init(d, cfg.param_dtype, device),
-            "attn": attn,
-            "ln_ffn": L.rmsnorm_init(d, cfg.param_dtype, device),
-            "mlp": {"wi": dense(km[0], d, f), "wg": dense(km[1], d, f),
-                    "wo": dense(km[2], f, d)}})
-    return {"embed": {"table": tn(ks[0], (cfg.vocab, d), 0.02)},
-            "layers": layers,
-            "final_norm": L.rmsnorm_init(d, cfg.param_dtype, device),
-            "unembed": dense(ks[4], d, cfg.vocab)}
+        layer: Params = {}
+        if cfg.family != "ssm":
+            ka = prng.split(kb[0], 4)
+            attn = {"q": dense(ka[0], d, h * hd),
+                    "k": dense(ka[1], d, hkv * hd),
+                    "v": dense(ka[2], d, hkv * hd),
+                    "o": dense(ka[3], h * hd, d)}
+            if cfg.qk_norm:
+                attn["q_norm"], attn["k_norm"] = norm(hd), norm(hd)
+            layer.update(ln_attn=norm(d), attn=attn)
+        if cfg.family in ("ssm", "hybrid"):
+            d_in, nh, _, n = ssm.dims(cfg)
+            conv_ch = d_in + 2 * n
+            kss = prng.split(kb[2], 6)
+            layer.update(ln_ssm=norm(d), ssm={
+                "in_proj": dense(kss[0], d, 2 * d_in + 2 * n + nh),
+                "out_proj": dense(kss[1], d_in, d),
+                "conv_w": tn(kss[2], (cfg.ssm.d_conv, conv_ch),
+                             conv_ch ** -0.5),
+                "A_log": ssm.a_log_init(nh, device),
+                "D": torch.ones(nh, dtype=torch.float32, device=device),
+                "dt_bias": torch.zeros(nh, dtype=torch.float32,
+                                       device=device),
+                "norm": norm(d_in)})
+        if cfg.family != "ssm":
+            km = prng.split(kb[3], 3)
+            layer.update(ln_ffn=norm(d), mlp={
+                "wi": dense(km[0], d, f), "wg": dense(km[1], d, f),
+                "wo": dense(km[2], f, d)})
+        layers.append(layer)
+    p = {"embed": {"table": tn(ks[0], (cfg.vocab, d), 0.02)},
+         "layers": layers, "final_norm": norm(d)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense(ks[4], d, cfg.vocab)
+    return p
 
 
 def init_lm(seed: int, cfg: ModelConfig, device="cuda",
@@ -102,9 +140,10 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda",
                        for _ in range(cfg.n_layers)],
             "final_norm": L.rmsnorm_init(cfg.d_model, cfg.param_dtype,
                                          device),
-            "unembed": L.dense_init(gen, cfg.d_model, cfg.vocab,
-                                    cfg.param_dtype, device),
         }
+        if not cfg.tie_embeddings:
+            p["unembed"] = L.dense_init(gen, cfg.d_model, cfg.vocab,
+                                        cfg.param_dtype, device)
     policy = cfg.resolved_analog_policy()
     if policy is not None:
         from repro_torch.analog.convert import convert_to_analog
@@ -114,12 +153,24 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda",
     return p
 
 
+def _hybrid_key(akey):
+    return None if akey is None else prng.fold_in(akey, 101)
+
+
 def _block_apply(p, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
                  akey=None) -> Tensor:
-    """Full-sequence block (the dense family's aux loss is zero)."""
+    """Full-sequence block (no family here has an aux loss)."""
+    if cfg.family == "ssm":
+        h = L.rmsnorm_apply(p["ln_ssm"], x, cfg.norm_eps)
+        return x + ssm.forward(p["ssm"], h, cfg, akey=akey)
     h = L.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
-    x = x + attention.forward(p["attn"], h, cfg, positions=positions,
-                              akey=akey)
+    att = attention.forward(p["attn"], h, cfg, positions=positions,
+                            akey=akey)
+    if cfg.family == "hybrid":
+        hs = L.rmsnorm_apply(p["ln_ssm"], x, cfg.norm_eps)
+        sout = ssm.forward(p["ssm"], hs, cfg, akey=_hybrid_key(akey))
+        att = 0.5 * (att + sout)          # hymba: parallel heads, averaged
+    x = x + att
     h = L.rmsnorm_apply(p["ln_ffn"], x, cfg.norm_eps)
     return x + mlp.apply(p["mlp"], h, cfg, akey=akey)
 
@@ -155,20 +206,58 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
     positions = torch.arange(x.shape[1], device=x.device)[None]
     x = _layers(params["layers"], x, cfg, positions=positions, akey=akey)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return (unembed(params, x, cfg, akey),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def unembed(params: Params, x: Tensor, cfg: ModelConfig, akey=None):
+    """Logits: the tied table, or the unembed read under ``fold_in(akey,
+    203)``."""
+    if cfg.tie_embeddings:
+        return L.unembed_apply(params["embed"], x)
     uk = None if akey is None else prng.fold_in(akey, 203)
-    logits = L.dense_apply(params["unembed"], x, key=uk)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.dense_apply(params["unembed"], x, key=uk)
+
+
+def _ring_cache_from_full(k: Tensor, window: int) -> Tensor:
+    """The last ``window`` keys of (B, S, H, D) in ring-slot order."""
+    s = k.shape[1]
+    if s <= window:
+        return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, window - s))
+    idx = torch.arange(s - window, s, device=k.device)
+    out = torch.zeros((k.shape[0], window, *k.shape[2:]), dtype=k.dtype,
+                      device=k.device)
+    out[:, idx % window] = k[:, idx]
+    return out
 
 
 def block_prefill(p, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
                   cache_len: int, akey=None):
     """Full-sequence block that also emits its decode cache."""
-    h = L.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
-    att, (kk, vv) = attention.forward(p["attn"], h, cfg, positions=positions,
-                                      akey=akey, return_kv=True)
-    pad = cache_len - kk.shape[1]
-    cache = {"k": torch.nn.functional.pad(kk, (0, 0, 0, 0, 0, pad)),
-             "v": torch.nn.functional.pad(vv, (0, 0, 0, 0, 0, pad))}
+    cache: Dict[str, Tensor] = {}
+    if cfg.family != "ssm":
+        h = L.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
+        att, (kk, vv) = attention.forward(p["attn"], h, cfg,
+                                          positions=positions, akey=akey,
+                                          return_kv=True)
+        if cfg.swa_window > 0:
+            w = min(cfg.swa_window, cache_len)
+            cache["k"] = _ring_cache_from_full(kk, w)
+            cache["v"] = _ring_cache_from_full(vv, w)
+        else:
+            pad = (0, 0, 0, 0, 0, cache_len - kk.shape[1])
+            cache["k"] = torch.nn.functional.pad(kk, pad)
+            cache["v"] = torch.nn.functional.pad(vv, pad)
+    if cfg.family in ("ssm", "hybrid"):
+        hs = L.rmsnorm_apply(p["ln_ssm"], x, cfg.norm_eps)
+        # the layer key itself, also for the hybrid (see the module doc)
+        sout, st = ssm.forward(p["ssm"], hs, cfg, akey=akey,
+                               return_state=True)
+        cache["ssm_conv"], cache["ssm_state"] = st["conv"], st["ssm"]
+    if cfg.family == "ssm":
+        return x + sout, cache
+    if cfg.family == "hybrid":
+        att = 0.5 * (att + sout)
     x = x + att
     h = L.rmsnorm_apply(p["ln_ffn"], x, cfg.norm_eps)
     return x + mlp.apply(p["mlp"], h, cfg, akey=akey), cache
@@ -177,9 +266,23 @@ def block_prefill(p, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
 def block_decode(p, x_t: Tensor, cache: Dict[str, Tensor], pos: Tensor,
                  cfg: ModelConfig, akey=None):
     """Single-token block step; returns (y_t, new_cache)."""
+    new_cache = dict(cache)
+
+    def ssm_step(key):
+        h = L.rmsnorm_apply(p["ln_ssm"], x_t, cfg.norm_eps)
+        sout, st = ssm.decode(p["ssm"], h, {"conv": cache["ssm_conv"],
+                                            "ssm": cache["ssm_state"]},
+                              cfg, akey=key)
+        new_cache["ssm_conv"], new_cache["ssm_state"] = st["conv"], st["ssm"]
+        return sout
+
+    if cfg.family == "ssm":
+        return x_t + ssm_step(akey), new_cache
     h = L.rmsnorm_apply(p["ln_attn"], x_t, cfg.norm_eps)
-    att, nk, nv = attention.decode(p["attn"], h, cache["k"], cache["v"], pos,
-                                   cfg, akey=akey)
+    att, new_cache["k"], new_cache["v"] = attention.decode(
+        p["attn"], h, cache["k"], cache["v"], pos, cfg, akey=akey)
+    if cfg.family == "hybrid":
+        att = 0.5 * (att + ssm_step(_hybrid_key(akey)))
     x_t = x_t + att
     h = L.rmsnorm_apply(p["ln_ffn"], x_t, cfg.norm_eps)
-    return x_t + mlp.apply(p["mlp"], h, cfg, akey=akey), {"k": nk, "v": nv}
+    return x_t + mlp.apply(p["mlp"], h, cfg, akey=akey), new_cache

@@ -1,13 +1,16 @@
-"""Serving engine: prefill + batched greedy decode with per-layer KV caches.
+"""Serving engine: prefill + batched greedy decode with per-layer caches.
 
 Analog serving: parameters converted by ``convert_to_analog`` dispatch
 through ``dense_apply``; pass ``akey`` and every analog projection draws its
 read keys from the JAX package's schedule — per layer ``fold_in(akey, li)``,
-unembed ``fold_in(akey, 203)``, decode step ``i`` from
+an untied unembed ``fold_in(akey, 203)``, decode step ``i`` from
 ``decode_step_key(akey, i)``.
 
 Caches are dicts of tensors stacked over layers (leading L axis) plus the
-per-row position ``pos``.
+per-row position ``pos`` (int32, as in the JAX package): ``k``/``v`` for
+attention (a ring of ``swa_window`` slots when the window is shorter than
+``max_seq``; no KV cache for the ssm family), ``ssm_conv`` and
+``ssm_state`` for the SSD blocks.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.utils import prng
 
@@ -26,7 +30,6 @@ Tensor = torch.Tensor
 #: fold_in offset separating decode-step keys from the per-layer (li) and
 #: unembed (203) constants consumed from the same base key.
 DECODE_KEY_OFFSET = 1 << 20
-UNEMBED_KEY = 203
 
 
 def decode_step_key(akey, step: int):
@@ -37,18 +40,33 @@ def decode_step_key(akey, step: int):
     return prng.fold_in(akey, DECODE_KEY_OFFSET + step)
 
 
+def cache_len_for(cfg: ModelConfig, max_seq: int) -> int:
+    if cfg.family == "ssm":
+        return 0
+    if cfg.swa_window > 0:
+        return min(cfg.swa_window, max_seq)
+    return max_seq
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device="cuda") -> Dict[str, Tensor]:
     """Zero-initialised decode state."""
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
-            "pos": torch.zeros(batch, dtype=torch.int64, device=device)}
+    c: Dict[str, Tensor] = {}
+    n, cl = cfg.n_layers, cache_len_for(cfg, max_seq)
+    if cfg.family != "ssm":
+        shape = (n, batch, cl, cfg.n_kv_heads, cfg.head_dim)
+        c["k"] = torch.zeros(shape, dtype=cfg.act_dtype, device=device)
+        c["v"] = torch.zeros(shape, dtype=cfg.act_dtype, device=device)
+    if cfg.family in ("ssm", "hybrid"):
+        st = S.init_state(cfg, batch, device=device)
+        c["ssm_conv"] = st["conv"][None].repeat(n, 1, 1, 1)
+        c["ssm_state"] = st["ssm"][None].repeat(n, 1, 1, 1, 1)
+    c["pos"] = torch.zeros(batch, dtype=torch.int32, device=device)
+    return c
 
 
-def _unembed(params, x: Tensor, akey) -> Tensor:
-    uk = None if akey is None else prng.fold_in(akey, UNEMBED_KEY)
-    return L.dense_apply(params["unembed"], x, key=uk)
+def _stack(caches) -> Dict[str, Tensor]:
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
 def prefill(params, tokens: Tensor, cfg: ModelConfig, *, max_seq: int,
@@ -56,18 +74,18 @@ def prefill(params, tokens: Tensor, cfg: ModelConfig, *, max_seq: int,
     """Process the prompt; returns (last-position logits, decode cache)."""
     x = L.embed_apply(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    ks, vs = [], []
+    cl = cache_len_for(cfg, max_seq)
+    caches = []
     for li, layer_p in enumerate(params["layers"]):
         lk = None if akey is None else prng.fold_in(akey, li)
         x, cache = T.block_prefill(layer_p, x, cfg, positions=positions,
-                                   cache_len=max_seq, akey=lk)
-        ks.append(cache["k"])
-        vs.append(cache["v"])
+                                   cache_len=cl, akey=lk)
+        caches.append(cache)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    logits = _unembed(params, x[:, -1:], akey)
-    caches = {"k": torch.stack(ks), "v": torch.stack(vs),
-              "pos": torch.full((tokens.shape[0],), tokens.shape[1],
-                                dtype=torch.int64, device=tokens.device)}
+    logits = T.unembed(params, x[:, -1:], cfg, akey)
+    caches = _stack(caches)
+    caches["pos"] = torch.full((tokens.shape[0],), tokens.shape[1],
+                               dtype=torch.int32, device=tokens.device)
     return logits, caches
 
 
@@ -77,25 +95,26 @@ def serve_step(params, tokens_t: Tensor, cache: Dict[str, Tensor],
     """One batched decode step.  tokens_t (B, 1) -> (logits (B,1,V), cache)."""
     pos = cache["pos"]
     x = L.embed_apply(params["embed"], tokens_t)
-    ks, vs = [], []
+    names = [k for k in cache if k != "pos"]
+    caches = []
     for li, layer_p in enumerate(params["layers"]):
         lk = None if akey is None else prng.fold_in(akey, li)
-        x, nc = T.block_decode(layer_p, x,
-                               {"k": cache["k"][li], "v": cache["v"][li]},
+        x, nc = T.block_decode(layer_p, x, {k: cache[k][li] for k in names},
                                pos, cfg, akey=lk)
-        ks.append(nc["k"])
-        vs.append(nc["v"])
+        caches.append(nc)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    logits = _unembed(params, x, akey)
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
-                    "pos": pos + 1}
+    logits = T.unembed(params, x, cfg, akey)
+    new_cache = _stack(caches)
+    new_cache["pos"] = pos + 1
+    return logits, new_cache
 
 
 def greedy_generate(params, prompt: Tensor, cfg: ModelConfig, *,
                     n_steps: int, max_seq: int, akey=None):
     """Batched greedy loop: prefill with the base key, then decode step
     ``i`` with ``decode_step_key(akey, i)``.  Returns (tokens (B, n_steps),
-    cache)."""
+    cache).  A per-request run of it is the continuous-batching
+    scheduler's token oracle (``serve/scheduler.py``)."""
     logits, cache = prefill(params, prompt, cfg, max_seq=max_seq, akey=akey)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     toks = [tok]

@@ -82,3 +82,15 @@ def test_walks_the_lm_trainer():
             ("optim", "optimizers.py"), ("data", "tokens.py"),
             ("models", "transformer.py"), ("analog", "convert.py"),
             ("benchmarks", "analog_lm_convergence.py")} <= walked
+
+
+def test_walks_the_ssm_hybrid_and_serving_modules():
+    """The SSD block, the new configs, the scheduler and the serving
+    driver are walked."""
+    walked = {(p.parent.name, p.name) for p in FILES}
+    assert {("models", "ssm.py"), ("models", "attention.py"),
+            ("serve", "scheduler.py"), ("serve", "engine.py"),
+            ("launch", "serve.py"), ("configs", "base.py"),
+            ("configs", "registry.py"), ("configs", "stablelm_3b.py"),
+            ("configs", "mamba2_130m.py"),
+            ("configs", "hymba_1_5b.py")} <= walked
