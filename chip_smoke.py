@@ -215,7 +215,36 @@ Phases, each of which makes the script exit non-zero when it fails:
       of one call goes (#2's and #1's decode read, #3's K1 read, #6 at W4,
       #7 at K2 with 13 devices per weight: host enqueue, wall, device time,
       kernels, launches and allocations per call); the key-schedule kernel
-      is timed in g2, at the FUSED step's tape.
+      is timed in g2, at the FUSED step's tape;
+  (t2) training the ssm and hybrid families (``launch.train.lm_config``,
+      ``train/lm.py``, the engine's ``scan_steps``): #1 and #2 at
+      mamba2's and hymba's tiles (1016 rows, forward and transposed), #6
+      at the tiles of at most 4096 rows and #4 at the others' counts, #1
+      at the temporal route's per-position reads (8 rows, device seed and
+      predicate) and #4 accumulated over 127 positions at ``row_offset = t
+      * 8`` bitwise one count, against their plain versions; then batch 8,
+      seq 128, seed 0, published widths: mamba2_130m at all 24 layers
+      under FUSED_LM and ITERATIVE_LM and at 2 layers with its SSD
+      projections on the temporal route (``*ssm*=nm_bm``: a read per
+      position, each read twice under remat), hymba_1_5b at 4 of 32 layers
+      under FUSED_LM and at 1 with its SSD branch on the temporal route;
+      each run 3 loop
+      steps against a warm-up and 3 graph replays, params, optimizer state
+      and losses bitwise, finite losses, the launches per replay equal to
+      ``lm_per_step``'s reckoning, the key schedule at the captured
+      tape (up to 46987 derivations: keys in device memory) bitwise its
+      plain evaluator, both engines' steps/s, the graph's nodes, its
+      warm-up and capture seconds, a replay's profile and the peak memory;
+  (s4) serve the full-size seamless_m4t_medium (12 encoder and 12 decoder
+      layers, d 1024, vocab 256206) under two-phase BM with the flash
+      kernel: batch 2, 1000 prompt tokens and 1000 stub frames, 16 tokens;
+      launches per kind (36 #8 a prefill: 12 bidirectional, 12 causal, 12
+      cross), prefill logits within 1e-3 of the chunked attention's and
+      the same first token; #8 at the prefill's own bidirectional and
+      cross inputs and at Sq 1000 over Sk 1500, #1 and #2 at its reads
+      (the 256206x1025 unembed at B 2), against their plain versions; the
+      smoke model, card against CPU, flash off and on; then the slice's
+      kernel times (t2's and s4's shapes; #8 against SDPA without a mask).
 
 The line before the card line is the kernels' JSON summary; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
@@ -2053,26 +2082,30 @@ def stream_memory(results):
               f"below the materialized {peaks['materialized'][what]['peak']}")
 
 
+def _key_schedule_work(tape):
+    """``(bytes, operations)`` of one evaluation of ``tape``.  Bytes: base,
+    counter, the tape (parent, data, level, seed slots), keys and seeds
+    out; operations: 77 integer operations per threefry block (20 rounds
+    of add, rotate, xor; 5 key injections; 2 initial adds) and 14 per seed
+    (two splitmix32 finalizers), each charged as one operation at the fp32
+    rate (no int32 peak is used here; the card's int32 rate is lower, so
+    this bound is a lower one)."""
+    n_ops, n_seeds = len(tape.recorded[0]), len(tape.recorded[2])
+    byts = 16 + 8 + 12 * n_ops + 4 * n_seeds + 16 * (n_ops + 1) + 8 * n_seeds
+    return byts, 77 * (n_ops + 1) + 14 * n_seeds
+
+
 def key_schedule_time(results, tape, prog):
     """The key-schedule kernel at the FUSED step's tape: its time, its plain
     evaluator's (host Python), its bound; its check row (the largest
     difference of g2's table comparisons)."""
     from repro_torch.kernels import key_schedule as ks
-    n_ops, n_seeds = len(tape.recorded[0]), len(tape.recorded[2])
     counter = prog.ctr[1]
-    # bytes: base, counter, the tape (parent, data, level, seed slots),
-    # keys and seeds out; operations: 77 integer operations per threefry
-    # block (20 rounds of add, rotate, xor; 5 key injections; 2 initial
-    # adds) and 14 per seed (two splitmix32 finalizers), each charged as
-    # one operation at the fp32 rate (no int32 peak is used here; the
-    # card's int32 rate is lower, so this bound is a lower one)
-    byts = 16 + 8 + 12 * n_ops + 4 * n_seeds + 16 * (n_ops + 1) + 8 * n_seeds
-    int_ops = 77 * (n_ops + 1) + 14 * n_seeds
     _time_row(results.setdefault("times", []), "key_schedule",
               "LeNet FUSED step",
               lambda: ks.key_schedule(tape, prog.base, counter),
-              lambda: ks.evaluate_plain(tape, (0, 2), 0), None, byts,
-              int_ops, 0.0, batch=None)
+              lambda: ks.evaluate_plain(tape, (0, 2), 0), None,
+              *_key_schedule_work(tape), 0.0, batch=None)
     results.setdefault("checks", []).append(dict(
         kernel="key_schedule", case="LeNet FUSED step, 20 steps",
         max_abs_err=float(results["engine_fused"]["key_tape"]["max_abs_err"]),
@@ -3149,6 +3182,7 @@ def recurrent(results):
 LM_LAYERS, LM_B, LM_S, LM_STEPS = 4, 8, 128, 3
 LM_TIMED = 2                     # steps of each engine timed after those
 LM_ROWS = LM_B * (LM_S - 1)      # 1016 rows a read: tokens[:, :-1]
+T2_POSITIONS = LM_S - 1          # the temporal route's reads a sequence
 FUSED_LM = "lm_managed:use_pallas=true:bm_mode=two_phase:fuse_bwd_update=true"
 ITERATIVE_LM = "lm_managed:use_pallas=true"
 LM_POLICIES = (("lm_fused", FUSED_LM), ("lm_iterative", ITERATIVE_LM))
@@ -3164,34 +3198,63 @@ def _n_seg(k):
 
 
 def lm_per_step(cfg, policy):
-    """The analog launches one graphed LM step makes, from the code's
-    routes: every block's 7 tiles read forward twice under remat (the
-    forward and its recompute), the unembed once; the transpose reads and
-    updates once per tile; a tile of at most 4096 rows takes the fused #6
-    under ``fuse_bwd_update`` (q, k, v, o, wo), the others #2 transposed
-    and #4 (wg, wi, unembed); under iterative BM a managed read is a first
-    raw read and ``bm_max_iters`` predicated retries."""
+    """The analog launches one graphed LM step of any trained family makes,
+    from the code's routes.  Each dense site of a block (7 per attention +
+    MLP layer, 2 per SSD block) and the untied unembed, under the rule of
+    ``policy`` that matches its path: a block's forward reads run twice
+    under remat (the forward and its recompute), the unembed's once; an
+    SSD projection with no update management takes the temporal route, one
+    read per position (``T2_POSITIONS``) forward and transposed and one
+    count launch per position at ``row_offset = t * B``; a tile of at most
+    ``max_array_rows`` rows under two-phase BM and ``fuse_bwd_update``
+    takes #6 (one launch per position on the temporal route), the others
+    a transpose read and #4; a managed read is one #2 under two-phase BM,
+    a first raw read and ``bm_max_iters`` predicated retries under
+    iterative BM."""
     from repro_torch.analog.presets import parse_policy
-    rpu = parse_policy(policy).rules[0].cfg
-    n = cfg.n_layers
-    fwd = 7 * n * (2 if cfg.remat else 1) + 1
-    fused = 5 * n if rpu.fuse_bwd_update else 0
-    separate = 7 * n + 1 - fused
-    if rpu.bm_mode == "iterative":
-        return {"noisy_read": (rpu.bm_max_iters + 1) * (fwd + separate),
-                "pulse_counts": separate}
-    out = {"managed_read": fwd + separate, "pulse_counts": separate}
-    if fused:
-        out["bwd_update"] = fused
+    from repro_torch.models import ssm
+    pol = parse_policy(policy)
+    d, hd = cfg.d_model, cfg.head_dim
+    sites = []
+    if cfg.family != "ssm":
+        kv = cfg.n_kv_heads * hd
+        sites += [("attn/q", cfg.n_heads * hd), ("attn/k", kv),
+                  ("attn/v", kv), ("attn/o", d),
+                  ("mlp/wi", cfg.d_ff), ("mlp/wg", cfg.d_ff), ("mlp/wo", d)]
+    if cfg.family in ("ssm", "hybrid"):
+        d_in, h, _, n = ssm.dims(cfg)
+        sites += [("ssm/in_proj", 2 * d_in + 2 * n + h), ("ssm/out_proj", d)]
+    sites = [(f"layers/{p}", r, cfg.n_layers) for p, r in sites]
+    if not cfg.tie_embeddings:
+        sites.append(("unembed", cfg.vocab, 1))
+    out = {}
+    for path, rows, copies in sites:
+        rule = pol.match(path)
+        if rule is None or rule.cfg is None:
+            continue
+        rpu = rule.cfg
+        two_phase = rpu.bm_mode == "two_phase"
+        kind, per_read = (("managed_read", 1) if two_phase
+                          else ("noisy_read", rpu.bm_max_iters + 1))
+        positions = (T2_POSITIONS if "/ssm/" in path
+                     and not rpu.update_management else 1)
+        fused = (rpu.fuse_bwd_update and two_phase
+                 and rows <= rpu.max_array_rows)
+        fwd = 2 if cfg.remat and path.startswith("layers") else 1
+        reads = positions * (fwd + (0 if fused else 1))
+        out[kind] = out.get(kind, 0) + copies * reads * per_read
+        upd = "bwd_update" if fused else "pulse_counts"
+        out[upd] = out.get(upd, 0) + copies * positions
     return out
 
 
-def lm_kernels_vs_plain(results):
-    """#1 and #2 at the LM step's reads (1016 rows: every tile forward and
-    transposed, contractions in 2, 3 and 25 segments), #6 at q and wo
-    (1016 rows, BL 1) and #4 at wg's and the unembed's counts (1016 slots)
-    against their plain versions: reads within 1e-5 of the largest sum
-    |x||w| with equal flags, counts bitwise."""
+def _lm_checks(results, prefix, b, reads, fused, counts, seed):
+    """#1 and #2 at ``reads`` ((name, rows, cols): forward and transposed,
+    ``b`` rows, contractions in ``ARRAY``-wide segments; #2 with NM's
+    scale and two-phase BM), #6 at ``fused`` (``b`` rows, BL 1) and #4 at
+    ``counts`` (``b`` slots, BL 1) against their plain versions: reads
+    within 1e-5 of the largest sum |x||w| with equal flags, counts
+    bitwise.  Returns whether every check held."""
     import torch
     from repro_torch.core import update
     from repro_torch.kernels import bwd_update_mvm as kb
@@ -3199,9 +3262,8 @@ def lm_kernels_vs_plain(results):
     from repro_torch.kernels import noisy_mvm as kn
     from repro_torch.kernels import pulse_update as kp
 
-    ok, seed = True, 1500
-    b = LM_ROWS
-    for name, rows, cols in LM_TILES:
+    ok = True
+    for name, rows, cols in reads:
         for tr in (False, True):
             seed += 1
             g = torch.Generator(device=DEV).manual_seed(seed)
@@ -3209,8 +3271,8 @@ def lm_kernels_vs_plain(results):
             w = (torch.randn(rows, cols, generator=g, device=DEV)
                  * k ** -0.5).contiguous()
             x = _scaled_rows(g, b, k)
-            case = f"LM {name} {rows}x{cols}{' T' if tr else ''} B={b} " \
-                   f"n_seg={_n_seg(k)}"
+            case = f"{prefix} {name} {rows}x{cols}{' T' if tr else ''} " \
+                   f"B={b} n_seg={_n_seg(k)}"
             mag = float((x.abs() @ (w.abs() if tr else w.abs().T)).max())
             kw = dict(sigma=SIGMA, alpha=ALPHA, transpose=tr,
                       n_seg=_n_seg(k))
@@ -3226,7 +3288,7 @@ def lm_kernels_vs_plain(results):
                               s, sp, mag)
             del y, s, yp, sp, w, x
     gains = torch.tensor([0.9, 1.2], device=DEV)
-    for name, rows, cols in (LM_TILES[0], LM_TILES[2]):
+    for name, rows, cols in fused:
         seed += 1
         g = torch.Generator(device=DEV).manual_seed(seed)
         w = (torch.randn(rows, cols, generator=g, device=DEV)
@@ -3235,8 +3297,8 @@ def lm_kernels_vs_plain(results):
         dd = _scaled_rows(g, b, rows)
         nm_s = dd.abs().amax(1, keepdim=True)
         ok &= _fused_checks(
-            results, "bwd_update_mvm", f"LM {name} {rows}x{cols} B={b}",
-            [(dd, nm_s, (71, 72), (81, 82, 0), "")],
+            results, "bwd_update_mvm", f"{prefix} {name} {rows}x{cols} "
+            f"B={b}", [(dd, nm_s, (71, 72), (81, 82, 0), "")],
             lambda d_, n_, rs, us, **kw: kb.bwd_update_mvm(
                 w, d_, x, n_, rs, us, gains, **kw),
             lambda d_, n_, rs, us, **kw: kb.bwd_update_mvm_plain(
@@ -3244,7 +3306,7 @@ def lm_kernels_vs_plain(results):
             w, dict(sigma=SIGMA, alpha=ALPHA, two_phase=True, bl=1))
         del w, x, dd
     gain = torch.tensor(0.7, device=DEV)
-    for name, rows, cols in (LM_TILES[1], LM_TILES[3]):
+    for name, rows, cols in counts:
         seed += 1
         g = torch.Generator(device=DEV).manual_seed(seed)
         r = update.signed_streams(seed, torch.randn(
@@ -3254,12 +3316,24 @@ def lm_kernels_vs_plain(results):
         up, dn = kp.pulse_counts(r.contiguous(), c.contiguous())
         upp, dnp = kp.pulse_counts_plain(r.contiguous(), c.contiguous())
         ok &= _count_check(results, "pulse_counts",
-                           f"LM {name} {rows}x{cols} {b} slots BL=1", up, dn,
-                           upp, dnp)
+                           f"{prefix} {name} {rows}x{cols} {b} slots BL=1",
+                           up, dn, upp, dnp)
         del r, c, up, dn, upp, dnp
         _free()
-    check(ok, "a kernel disagrees with its plain version at the LM "
-          "training shapes")
+    return ok
+
+
+def lm_kernels_vs_plain(results):
+    """#1 and #2 at the LM step's reads (1016 rows: every tile forward and
+    transposed, contractions in 2, 3 and 25 segments), #6 at q and wo
+    (1016 rows, BL 1) and #4 at wg's and the unembed's counts (1016 slots)
+    against their plain versions: reads within 1e-5 of the largest sum
+    |x||w| with equal flags, counts bitwise."""
+    check(_lm_checks(results, "LM", LM_ROWS, LM_TILES,
+                     (LM_TILES[0], LM_TILES[2]), (LM_TILES[1], LM_TILES[3]),
+                     1500),
+          "a kernel disagrees with its plain version at the LM training "
+          "shapes")
 
 
 def _lm_tree_leaves(*trees):
@@ -3273,14 +3347,14 @@ def _lm_tree_leaves(*trees):
     return out
 
 
-def _lm_state(policy):
-    """The full-width 4-layer deepseek_7b under ``policy``: ``(cfg, step,
-    opt, params, opt_state)`` on the card, weights from seed 0."""
+def _lm_state(policy, arch="deepseek_7b", layers=LM_LAYERS):
+    """The full-width ``arch`` (the 4-layer deepseek_7b) under ``policy``:
+    ``(cfg, opt, params, opt_state)`` on the card, weights from seed 0."""
     import dataclasses as dc
     from repro_torch.launch import train as tl
     from repro_torch.train import lm
-    cfg = dc.replace(tl.lm_config("deepseek_7b", smoke=False,
-                                  analog_policy=policy), n_layers=LM_LAYERS)
+    cfg = dc.replace(tl.lm_config(arch, smoke=False, analog_policy=policy),
+                     n_layers=layers)
     opt = lm.default_optimizer(cfg)
     params, state = lm.init_train_state(0, cfg, opt, device=DEV)
     return cfg, opt, params, state
@@ -3297,14 +3371,16 @@ def _lm_batches(cfg, start, n):
                                       for i in range(start, start + n)]))
 
 
-def lm_train(label, policy, results):
+def lm_train(label, policy, results, arch="deepseek_7b", layers=LM_LAYERS):
     """The main path: ``train/lm.py``'s step on the full-width 4-layer
-    deepseek_7b, ``LM_STEPS`` steps through the loop (``make_train_step``,
-    host keys ``fold_in(key(1), s)``) and through the engine
+    deepseek_7b (or ``arch`` at ``layers``), ``LM_STEPS`` steps through the
+    loop (``make_train_step``, host keys ``fold_in(key(1), s)``) and
+    through the engine
     (``make_scan_train_step``: one CUDA graph replay per step) from the
     same weights; launch counters set to 0 before each and read after
     it; no plain-version call; params, optimizer state and losses bitwise
-    equal; the launches per replay against :func:`lm_per_step`; the
+    equal; the launches per replay against :func:`lm_per_step`; the key
+    schedule at the captured tape bitwise its plain evaluator; the
     captured step's nodes; the loop's steps/s over its steps after the
     first and the engine's over ``LM_TIMED`` more replays; one replay
     profiled; the peak memory of the loop steps and of the capture with its
@@ -3318,7 +3394,7 @@ def lm_train(label, policy, results):
 
     _free()
     key_base = prng.key(1)
-    cfg, opt, p_loop, s_loop = _lm_state(policy)
+    cfg, opt, p_loop, s_loop = _lm_state(policy, arch, layers)
     step, _ = lm.make_train_step(cfg, opt)
     toks = _lm_batches(cfg, 0, LM_STEPS + LM_TIMED)
     launches, mem, secs = {}, {}, {}
@@ -3340,7 +3416,7 @@ def lm_train(label, policy, results):
                                       - base) / 2 ** 30
         mem["state_gb"] = base / 2 ** 30
         _free()                   # the loop's cached blocks, before capture
-        _, _, p_scan, s_scan = _lm_state(policy)
+        _, _, p_scan, s_scan = _lm_state(policy, arch, layers)
         multi, _ = lm.make_scan_train_step(cfg, opt)
         torch.cuda.reset_peak_memory_stats()
         base2 = torch.cuda.memory_allocated()
@@ -3358,7 +3434,7 @@ def lm_train(label, policy, results):
         b = _lm_tree_leaves(p_scan, s_scan)
         equal = len(a) == len(b) and all(torch.equal(x, y)
                                          for x, y in zip(a, b))
-        print(f"[{label}] deepseek_7b d 4096 x {LM_LAYERS} layers, batch "
+        print(f"[{label}] {arch} d {cfg.d_model} x {layers} layers, batch "
               f"{LM_B}, seq {LM_S}, {policy}: {LM_STEPS} loop steps vs "
               f"{LM_STEPS} graphed: params and optimizer state ({len(a)} "
               f"tensors) bitwise equal {equal}, losses loop {loop_losses} "
@@ -3379,12 +3455,14 @@ def lm_train(label, policy, results):
               f"{prog.captured}, expected {want}")
         missing = [k for k in want if not launches["scan"].get(k)]
         check(not missing, f"{label}: the kernels {missing} never launched")
+        t0 = time.perf_counter()
         census = _graph_census(prog.graph,
                                ROOT / "build" / "graphs" / f"{label}.dot")
+        secs["census"] = time.perf_counter() - t0
         tape = dict(derivations=len(prog.tape.recorded[0]),
                     seeds=len(prog.tape.recorded[2]))
         print(f"[{label}] captured step's nodes ({sum(census.values())}): "
-              f"{census}; key tape {tape}")
+              f"{census}; key tape {tape}; host seconds {prog.seconds}")
         # the loop's state goes: the graph's pool and a loop step's
         # temporaries do not fit beside two states
         del a, b, p_loop, s_loop
@@ -3397,23 +3475,29 @@ def lm_train(label, policy, results):
         rate = {"python": (LM_STEPS - 1) / sum(loop_s[1:]),
                 "scan": LM_TIMED / secs["scan"]}
         # one more replay, profiled; its wall the timed replays' mean
+        t0 = time.perf_counter()
         replay = _profile_report(_device_rows(prog.run), secs["scan"]
                                  / LM_TIMED * 1e3,
                                  f"one replayed {label} step")
+        secs["profile"] = time.perf_counter() - t0
     check(plain.calls == 0, f"{label}: {plain.calls} plain-version calls on "
           "the card")
+    _tape_check(results, label, prog)
     print(f"[{label}] steps/s python {rate['python']:.3f}, scan "
           f"{rate['scan']:.3f} (loop steps {[round(t, 2) for t in loop_s]}"
           f" s; scan's first {LM_STEPS} with warm-up and capture "
-          f"{secs['scan_first']:.1f}s); memory: state {mem['state_gb']:.2f} "
+          f"{secs['scan_first']:.1f}s; the node census {secs['census']:.1f}s,"
+          f" the profiled replay {secs['profile']:.1f}s); memory: state "
+          f"{mem['state_gb']:.2f} "
           f"GB per copy, peak above it {mem['python_step_peak_gb']:.2f} GB "
           f"in loop steps, {mem['capture_and_replays_peak_gb']:.2f} GB in "
           f"the capture and replays")
     results[f"lm_train_{label}"] = dict(
-        policy=policy, layers=LM_LAYERS, batch=LM_B, seq=LM_S,
+        arch=arch, policy=policy, layers=layers, batch=LM_B, seq=LM_S,
         launches=launches["scan"], loop_launches=launches["python"],
         per_replay=prog.captured, per_step_from_code=want,
-        graph_nodes=census, key_tape=tape, losses=scan_losses,
+        graph_nodes=census, key_tape=tape, build_seconds=prog.seconds,
+        losses=scan_losses,
         steps_per_s=rate,
         seconds=secs, memory_gb=mem, replayed_step=replay)
     del p_scan, s_scan, multi, prog
@@ -3867,24 +3951,27 @@ def _peak(label, row):
 def _generate(label, cfg, params, akey, batch, prompt, gen, want=None):
     """Warm-up, then one counted, timed ``greedy_generate`` (no plain
     version may run); then one prefill's and one decode step's wall and
-    device time.  ``want``: the launches per kind it must make."""
+    device time.  ``want``: the launches per kind it must make.  An
+    encoder-decoder reads the driver's stub frames (``make_frames``)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as S
     from repro_torch.serve import engine
 
     prompts = S.make_prompts(cfg, batch, prompt, 0, DEV)
+    frames = S.make_frames(cfg, batch, prompt, 0, DEV)
     max_seq = prompt + gen
     with torch.no_grad():
         engine.greedy_generate(params, prompts, cfg, n_steps=2,
-                               max_seq=max_seq, akey=akey)     # warm-up
+                               max_seq=max_seq, enc_embeds=frames,
+                               akey=akey)                     # warm-up
         torch.cuda.synchronize()
         with _PlainCalls() as plain:
             ops.reset_launch_counts()
             t0 = time.perf_counter()
             toks, cache = engine.greedy_generate(
                 params, prompts, cfg, n_steps=gen, max_seq=max_seq,
-                akey=akey)
+                enc_embeds=frames, akey=akey)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             counts = ops.launch_counts()
@@ -3903,7 +3990,8 @@ def _generate(label, cfg, params, akey, batch, prompt, gen, want=None):
         shapes = {k: tuple(v.shape) for k, v in cache.items()}
         del cache
         prefill = lambda: engine.prefill(params, prompts, cfg,  # noqa
-                                         max_seq=max_seq, akey=akey)
+                                         max_seq=max_seq,
+                                         enc_embeds=frames, akey=akey)
         logits, cache = prefill()
         check(tuple(logits.shape) == (batch, 1, cfg.vocab), "logit shape")
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
@@ -3915,6 +4003,7 @@ def _generate(label, cfg, params, akey, batch, prompt, gen, want=None):
             f"one {cfg.name} decode step (B {batch})")
         del logits, cache
     return dict(batch=batch, prompt=prompt, gen=gen, launches=counts,
+                first_tokens=toks[:, 0].tolist(),
                 plain_calls=plain.calls, tok_per_s=batch * gen / dt,
                 seconds=dt, cache_shapes=shapes, prefill_profile=pre,
                 decode_profile=dec)
@@ -4023,17 +4112,21 @@ def _smoke_vs_cpu(label, arch, policy, results, steps=4, prompt=40,
                                act_dtype=torch.float32)
     p_cpu = transformer.init_lm(0, cfg0, device="cpu")
     p_gpu = _to(p_cpu, DEV)
-    toks = torch.as_tensor(np.random.default_rng(6).integers(
-        0, cfg0.vocab, (2, prompt)))
+    rng = np.random.default_rng(6)
+    toks = torch.as_tensor(rng.integers(0, cfg0.vocab, (2, prompt)))
+    frames = (torch.as_tensor(rng.normal(0, 0.5, (2, prompt, cfg0.d_model)),
+                              dtype=torch.float32)
+              if cfg0.encoder_layers else None)
     for fl in flash:
         cfg = dataclasses.replace(cfg0, use_flash_kernel=fl)
         runs = {}
         for dev, p in (("cpu", p_cpu), (DEV, p_gpu)):
             key = prng.key(5)
             with torch.no_grad():
-                lg, cache = engine.prefill(p, toks.to(dev), cfg,
-                                           max_seq=prompt + steps + 1,
-                                           akey=key)
+                lg, cache = engine.prefill(
+                    p, toks.to(dev), cfg, max_seq=prompt + steps + 1,
+                    enc_embeds=None if frames is None else frames.to(dev),
+                    akey=key)
                 out, caches = [lg.cpu()], [{k: v.cpu()
                                             for k, v in cache.items()}]
                 for i in range(steps):
@@ -4134,16 +4227,23 @@ def serve_mamba(results):
         _smoke_vs_cpu("reference_mamba", "mamba2_130m", policy, results)
 
 
-class _QKV:
-    """Keeps the inputs of the first flash-attention call while active."""
+class _FlashCalls:
+    """Records the mode of every flash-attention call of one prefill while
+    active and keeps the inputs of each mode's first call: ``causal``, and
+    without the causal mask ``bidirectional`` (the encoder's layers, which
+    run before any causal call) or ``cross`` (the decoder's, after)."""
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as fa
-        self.fa, self.fn, self.args = fa, fa.flash_attention, None
+        self.fa, self.fn = fa, fa.flash_attention
+        self.modes, self.first = [], {}
 
         def keep(q, k, v, **kw):
-            if self.args is None:
-                self.args = (q.clone(), k.clone(), v.clone(), kw)
+            mode = ("causal" if kw.get("causal", True) else "cross"
+                    if "causal" in self.modes else "bidirectional")
+            self.modes.append(mode)
+            if mode not in self.first:
+                self.first[mode] = (q.clone(), k.clone(), v.clone(), kw)
             return self.fn(q, k, v, **kw)
         fa.flash_attention = keep
         return self
@@ -4184,10 +4284,10 @@ def serve_hymba(results):
 
     # #8 at this prefill's own q, k, v (layer 0), against its plain version
     prompts = S.make_prompts(cfg, HYMBA_BATCH, HYMBA_PROMPT, 0, DEV)
-    with torch.no_grad(), _QKV() as kept:
+    with torch.no_grad(), _FlashCalls() as kept:
         engine.prefill(params, prompts, cfg,
                        max_seq=HYMBA_PROMPT + HYMBA_GEN, akey=akey)
-    q, k, v, kw = kept.args
+    q, k, v, kw = kept.first["causal"]
     check(kw.get("window") == cfg.swa_window and kw.get("causal"),
           f"flash called with {kw}")
     y = fa.flash_attention(q, k, v, **kw)
@@ -4473,6 +4573,384 @@ def slice16_kernel_times(results):
     _free()
 
 
+# ---------------------------------------------------------------------------
+# (t2) training the ssm and hybrid families; (s4) serving the
+# encoder-decoder
+# ---------------------------------------------------------------------------
+
+# the SSD projections on the temporal route: nm_bm (no update management)
+# reads once per position under the paper's iterative BM, on #1
+T2_TEMPORAL = "*ssm*=nm_bm:use_pallas=true"
+# (label, arch, layers, policy): mamba2 at all 24 layers on
+# the single-shot route; hymba cut to 4 of 32 layers, as phase t cuts
+# deepseek; the temporal route at 2 layers of mamba2 and 1 of hymba: a
+# layer's SSD projections make 8382 #1 launches a replay (762 reads of 11
+# predicated launches), and at 4 layers the warm-up and capture took the
+# host 34-49 s a run
+T2_RUNS = (
+    ("t2_mamba_fused", "mamba2_130m", 24, FUSED_LM),
+    ("t2_mamba_iterative", "mamba2_130m", 24, ITERATIVE_LM),
+    ("t2_mamba_temporal", "mamba2_130m", 2, T2_TEMPORAL),
+    ("t2_hymba_fused", "hymba_1_5b", 4, FUSED_LM),
+    ("t2_hymba_temporal", "hymba_1_5b", 1, f"{T2_TEMPORAL},*={FUSED_LM}"),
+)
+# (name, rows, cols) of the new tiles, a bias column on each
+T2_MAMBA = [("in_proj", 3352, 769), ("out_proj", 768, 1537)]
+T2_HYMBA = [("q", 1600, 1601), ("k", 320, 1601), ("o", 1600, 1601),
+            ("wi", 5504, 1601), ("wo", 1600, 5505), ("in_proj", 6482, 1601),
+            ("out_proj", 1600, 3201), ("unembed", 32001, 1601)]
+SEAMLESS_BATCH, SEAMLESS_PROMPT, SEAMLESS_GEN = 2, 1000, 16
+# prefill logits with the flash kernel against the chunked attention (the
+# two sum a row's scores in another order: float32 reassociation through
+# 24 layers)
+S4_LOGIT_ATOL = 1e-3
+FLASH_RTOL = FLASH_ATOL = 2e-5   # tests/test_torch_flash.py
+PUBLISHED["seamless_m4t_medium"] = dict(
+    n_layers=12, encoder_layers=12, d_model=1024, n_heads=16, n_kv_heads=16,
+    d_ff=4096, vocab=256206, frontend="audio_stub")
+
+
+def t2_kernels_vs_plain(results):
+    """The new training shapes against the plain versions.  Single-shot
+    (1016 rows): #1 and #2 at mamba2's and hymba's tiles forward and
+    transposed (hymba's wi, wo and in_proj in 2 segments, its unembed in
+    8), #6 at the tiles of at most 4096 rows, #4 at the others' counts
+    (BL 1).  Temporal (8 rows a position): #1 at each SSD projection
+    forward and transposed, with its seed in device memory and under a
+    predicate as the graph reads it; #4 accumulated over the 127 positions
+    at ``row_offset = t * 8`` (BL 10) bitwise one count over the 1016
+    stacked rows."""
+    import torch
+    from repro_torch.core import update
+    from repro_torch.kernels import noisy_mvm as kn
+    from repro_torch.kernels import pulse_update as kp
+
+    ok = _lm_checks(results, "t2 mamba2", LM_ROWS, T2_MAMBA, T2_MAMBA, (),
+                    2500)
+    ok &= _lm_checks(results, "t2 hymba", LM_ROWS, T2_HYMBA,
+                     [t for t in T2_HYMBA if t[1] <= ARRAY],
+                     [t for t in T2_HYMBA if t[1] > ARRAY], 2600)
+    seed = 2700
+    temporal = [("mamba2 " + n, r, c) for n, r, c in T2_MAMBA] + [
+        ("hymba in_proj", 6482, 1601), ("hymba out_proj", 1600, 3201)]
+    for name, rows, cols in temporal:
+        for tr in (False, True):
+            seed += 1
+            g = torch.Generator(device=DEV).manual_seed(seed)
+            k = rows if tr else cols
+            w = (torch.randn(rows, cols, generator=g, device=DEV)
+                 * k ** -0.5).contiguous()
+            x = _scaled_rows(g, LM_B, k)
+            case = f"t2 temporal {name}{' T' if tr else ''} B={LM_B}"
+            mag = float((x.abs() @ (w.abs() if tr else w.abs().T)).max())
+            kw = dict(sigma=SIGMA, alpha=ALPHA, transpose=tr,
+                      n_seg=_n_seg(k))
+            y, s = kn.noisy_mvm(w, x, 0xB22 + seed, **kw)
+            yp, sp = kn.noisy_mvm_plain(w, x, 0xB22 + seed, **kw)
+            ok &= _read_check(results, "noisy_mvm", case, y, yp, s, sp, mag)
+            ok &= _seed_and_predicate_check(results, case, w, x,
+                                            0xB22 + seed, kw, y, s)
+    gain = torch.tensor(0.8, device=DEV)
+    for name, rows, cols in temporal[::2]:
+        seed += 1
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        drv = torch.randn(T2_POSITIONS, LM_B, cols, generator=g, device=DEV)
+        err = torch.randn(T2_POSITIONS, LM_B, rows, generator=g, device=DEV)
+        acc = None
+        for t in range(T2_POSITIONS):
+            r = update.signed_streams(7, err[t], gain, 10,
+                                      row_offset=t * LM_B)
+            c = update.signed_streams(8, drv[t], gain, 10,
+                                      row_offset=t * LM_B)
+            acc = kp.pulse_counts(r.reshape(-1, rows).contiguous(),
+                                  c.reshape(-1, cols).contiguous(), acc)
+        r = update.signed_streams(7, err.reshape(-1, rows), gain, 10)
+        c = update.signed_streams(8, drv.reshape(-1, cols), gain, 10)
+        r, c = (a.reshape(-1, a.shape[-1]).contiguous() for a in (r, c))
+        case = f"t2 temporal {name} {T2_POSITIONS} x B={LM_B}, BL=10"
+        ok &= _count_check(results, "pulse_counts", case + " accumulated",
+                           *acc, *kp.pulse_counts(r, c))
+        ok &= _count_check(results, "pulse_counts", case, *acc,
+                           *kp.pulse_counts_plain(r, c))
+        del drv, err, r, c, acc
+        _free()
+    check(ok, "a kernel disagrees with its plain version at the ssm and "
+          "hybrid training shapes")
+
+
+def _tape_check(results, label, prog):
+    """The key-schedule kernel at a captured step's tape, run once more at
+    the step counter it was left at, bitwise its plain evaluator (host
+    Python): every key and seed; timed at a tape whose keys live in device
+    memory."""
+    import torch
+    from repro_torch.kernels import key_schedule as ks
+    tape = prog.tape
+    ks.key_schedule(tape, prog.base, prog.ctr[1])
+    torch.cuda.synchronize()
+    base = tuple(int(v) & 0xFFFFFFFF for v in prog.base.tolist())
+    keys, seeds = ks.evaluate_plain(tape, base, int(prog.ctr[1]))
+    got_k = [tuple(k) for k in tape.keys[:len(keys)].cpu().tolist()]
+    got_s = tape.seeds[:len(seeds)].cpu().tolist()
+    good = got_k == [tuple(k) for k in keys] and got_s == list(seeds)
+    where = "shared" if len(keys) <= 6144 else "device"
+    print(f"[check] key_schedule    {label} tape: {len(keys) - 1} "
+          f"derivations, {len(seeds)} seeds (keys in {where} memory) "
+          f"bitwise the plain evaluator {'ok' if good else 'FAIL'}")
+    results.setdefault("checks", []).append(dict(
+        kernel="key_schedule", case=f"{label} tape", tol=0.0, ok=good,
+        max_abs_err=0.0 if good else float("inf")))
+    check(good, f"{label}: the key schedule differs from its plain "
+          "evaluator")
+    if where == "device":
+        _time_row(results.setdefault("times", []), "key_schedule",
+                  f"t2 {label} tape",
+                  lambda: ks.key_schedule(tape, prog.base, prog.ctr[1]),
+                  lambda: ks.evaluate_plain(tape, base, 0), None,
+                  *_key_schedule_work(tape), 0.0, batch=None)
+
+
+def family_training(results):
+    """(t2) mamba2_130m and hymba_1_5b through ``lm_train``: the kernels
+    at their shapes, then each run of T2_RUNS, graphed bitwise the loop,
+    its launches per replay against :func:`lm_per_step`."""
+    t2_kernels_vs_plain(results)
+    for label, arch, layers, policy in T2_RUNS:
+        t0 = time.perf_counter()
+        lm_train(label, policy, results, arch=arch, layers=layers)
+        results[f"lm_train_{label}"]["phase_s"] = time.perf_counter() - t0
+        print(f"[{label}] {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def _flash_check(results, case, q, k, v, kw):
+    """#8 against its plain version on the same inputs, rtol = atol =
+    2e-5."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    y = fa.flash_attention(q, k, v, **kw)
+    yp = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    diff = (y.float() - yp.float()).abs()
+    worst = float((diff / (FLASH_ATOL + FLASH_RTOL * yp.float().abs()))
+                  .max())
+    good = worst <= 1.0 and bool(torch.isfinite(y).all())
+    print(f"[check] flash_attention {case}: max|diff|="
+          f"{float(diff.max()):.3e} worst |diff|/tol={worst:.3f} "
+          f"(rtol=atol=2e-5) {'ok' if good else 'FAIL'}")
+    results.setdefault("checks", []).append(dict(
+        kernel="flash_attention", case=case, max_abs_err=float(diff.max()),
+        worst_ratio=worst, tol="rtol=atol=2e-5", ok=good))
+    return good
+
+
+def _seamless_per_pass(cfg):
+    """Analog reads of a prefill and of a decode step under a policy that
+    converts every dense site: the encoder's 7 a layer and the adapter,
+    the decoder's 7 and its cross attention's 4 a layer (its decode reads
+    only q and o: the static K/V are the prefill's), and the unembed."""
+    prefill = 7 * cfg.encoder_layers + 1 + 11 * cfg.n_layers + 1
+    return prefill, 9 * cfg.n_layers + 1
+
+
+def serve_seamless(results):
+    """(s4) seamless_m4t_medium at full width (12 encoder and 12 decoder
+    layers, d 1024, vocab 256206) under two-phase BM with the flash
+    kernel: batch 2, 1000 prompt tokens and 1000 stub frames, 16 tokens."""
+    import torch
+    from repro_torch.launch import serve as S
+    from repro_torch.serve import engine
+
+    cfg, params, akey, meta = _load("serve_seamless", "seamless_m4t_medium",
+                                    POLICY_2P, use_flash_kernel=True)
+    n = cfg.n_layers
+    pre, dec = _seamless_per_pass(cfg)
+    b, p, gen = SEAMLESS_BATCH, SEAMLESS_PROMPT, SEAMLESS_GEN
+    row = _generate("serve_seamless", cfg, params, akey, b, p, gen,
+                    want={"flash_attention": 3 * n,
+                          "managed_read": pre + (gen - 1) * dec})
+    cross = (n, b, p, cfg.n_kv_heads, cfg.head_dim)
+    check(row["cache_shapes"]["cross_k"] == cross
+          == row["cache_shapes"]["cross_v"],
+          f"cross cache {row['cache_shapes']}")
+    _peak("serve_seamless", row)
+
+    prompts = S.make_prompts(cfg, b, p, 0, DEV)
+    frames = S.make_frames(cfg, b, p, 0, DEV)
+    with torch.no_grad(), _FlashCalls() as calls:
+        on, _ = engine.prefill(params, prompts, cfg, max_seq=p + gen,
+                               enc_embeds=frames, akey=akey)
+    modes = {m: calls.modes.count(m) for m in set(calls.modes)}
+    print(f"[serve_seamless] #8 launches in one prefill by mode {modes}")
+    check(modes == {"bidirectional": n, "causal": n, "cross": n},
+          f"#8 modes {modes}")
+    off_cfg = dataclasses.replace(cfg, use_flash_kernel=False)
+    with torch.no_grad():
+        off, _ = engine.prefill(params, prompts, off_cfg, max_seq=p + gen,
+                                enc_embeds=frames, akey=akey)
+    err = float((on - off).abs().max())
+    first_on, first_off = (t[:, -1].argmax(-1).cpu() for t in (on, off))
+    print(f"[serve_seamless] prefill logits flash on vs off: max|diff| "
+          f"{err:.3e} (tol {S4_LOGIT_ATOL:g}), first tokens "
+          f"{first_on.tolist()} vs {first_off.tolist()}; generated first "
+          f"tokens "
+          f"{row['first_tokens']}")
+    check(err <= S4_LOGIT_ATOL, "prefill logits: flash on and off differ")
+    check(torch.equal(first_on, first_off)
+          and row["first_tokens"] == first_off.tolist(),
+          "the first token differs between flash on and off")
+    ok = True
+    for mode in ("bidirectional", "cross"):
+        q, k, v, kw = calls.first[mode]
+        check(not kw["causal"] and kw["window"] == 0, f"{mode}: {kw}")
+        ok &= _flash_check(results, f"seamless prefill {mode} "
+                           f"{tuple(q.shape)} over {tuple(k.shape)} "
+                           f"{str(q.dtype)[6:]}", q, k, v, kw)
+    g = torch.Generator(device=DEV).manual_seed(1817)
+    q, k, v = _qkv(g, b, p, 1500, 16, 16, 64, torch.float32)
+    ok &= _flash_check(results, "seamless cross Sq 1000 over Sk 1500 "
+                       "float32", q, k, v, dict(causal=False, window=0))
+    check(ok, "flash attention disagrees with its plain version at "
+          "seamless's shapes")
+    del q, k, v, calls, on, off
+    ok = _lm_checks(results, "s4 seamless", b,
+                    [("unembed", 256206, 1025), ("q", 1024, 1025)], (), (),
+                    2800)
+    ok &= _lm_checks(results, "s4 seamless", b * p,
+                     [("wi", 4096, 1025), ("wo", 1024, 4097)], (), (), 2810)
+    check(ok, "a read disagrees with its plain version at seamless's "
+          "shapes")
+    results["serve_seamless"] = dict(policy=POLICY_2P, **meta, **row,
+                                     flash_modes=modes, logit_err=err,
+                                     cross_cache=list(cross))
+    del params
+    _free()
+    _smoke_vs_cpu("reference_seamless", "seamless_m4t_medium", POLICY_2P,
+                  results, flash=(False, True))
+
+
+def slice17_kernel_times(results):
+    """#1 and #2 at mamba2's in_proj and hymba's transposed unembed (1016
+    rows), #6 at mamba2's in_proj and hymba's out_proj, #4 at hymba's
+    in_proj (1016 slots, BL 1) and the temporal route's per-position count
+    (8 rows, BL 10), #1 at the temporal route's per-position read of
+    hymba's in_proj (B 8); #2 at seamless's unembed (B 2) and #8 at
+    seamless's prefill, bidirectional and cross (Sk 1000 and 1500),
+    against SDPA without a mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import update
+    from repro_torch.kernels import bwd_update_mvm as kb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import managed_mvm as km
+    from repro_torch.kernels import noisy_mvm as kn
+    from repro_torch.kernels import pulse_update as kp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows_out = results.setdefault("times", [])
+    g = torch.Generator(device=DEV).manual_seed(1717)
+
+    def reads(shape, r, c, b, tr, kinds):
+        k, n_out = (r, c) if tr else (c, r)
+        w = torch.randn(r, c, generator=g, device=DEV) * k ** -0.5
+        x = torch.randn(b, k, generator=g, device=DEV)
+        nm_s = x.abs().amax(1, keepdim=True)
+        kw = dict(sigma=SIGMA, alpha=ALPHA, transpose=tr, n_seg=_n_seg(k))
+        mkw = dict(kw, two_phase=True, retry_scale=16.0)
+        byts = 4 * (w.numel() + x.numel() + b * n_out) + b
+        flops = 2.0 * b * k * n_out
+        lib = lambda: torch.matmul(x, w if tr else w.T)  # noqa: E731
+        if "noisy_mvm" in kinds:
+            _time_row(rows_out, "noisy_mvm", shape,
+                      lambda: kn.noisy_mvm(w, x, 1, **kw),
+                      lambda: kn.noisy_mvm_plain(w, x, 1, **kw), lib,
+                      byts, flops, 0.0, batch=b)
+        if "managed_mvm" in kinds:
+            again = int(km.managed_mvm_plain(w, x, nm_s, (1, 2), **dict(
+                mkw, two_phase=False))[1].sum())
+            _time_row(rows_out, "managed_mvm", shape,
+                      lambda: km.managed_mvm(w, x, nm_s, (1, 2), **mkw),
+                      lambda: km.managed_mvm_plain(w, x, nm_s, (1, 2),
+                                                   **mkw),
+                      lib, byts + 4 * b, flops * (1 + again / b), 0.0,
+                      batch=b)
+        _free()
+
+    both = ("noisy_mvm", "managed_mvm")
+    reads("t2 mamba2 in_proj 3352x769", 3352, 769, LM_ROWS, False, both)
+    reads("t2 hymba unembedT 32001x1601", 32001, 1601, LM_ROWS, True, both)
+    reads("t2 temporal hymba in_proj 6482x1601", 6482, 1601, LM_B, False,
+          ("noisy_mvm",))
+    reads("seamless unembed 256206x1025", 256206, 1025, SEAMLESS_BATCH,
+          False, ("managed_mvm",))
+    gains = torch.tensor([1.0, 1.0], device=DEV)
+    b = LM_ROWS
+    for shape, r, c in (("t2 mamba2 in_proj 3352x769", 3352, 769),
+                        ("t2 hymba out_proj 1600x3201", 1600, 3201)):
+        w = torch.randn(r, c, generator=g, device=DEV) * r ** -0.5
+        x = torch.randn(b, c, generator=g, device=DEV)
+        dd = torch.randn(b, r, generator=g, device=DEV)
+        nm_s = dd.abs().amax(1, keepdim=True)
+        sa = (torch.rand(b, c, device=DEV) < 0.5).float()
+        sb = (torch.rand(b, r, device=DEV) < 0.5).float()
+        bkw = dict(sigma=SIGMA, alpha=ALPHA, two_phase=True, bl=1)
+        again = int(kb.bwd_update_mvm_plain(
+            w, dd, x, nm_s, (1, 2), (3, 4, 0), gains,
+            **dict(bkw, two_phase=False))[1].sum())
+        _time_row(
+            rows_out, "bwd_update_mvm", f"{shape} B={b} BL=1",
+            lambda: kb.bwd_update_mvm(w, dd, x, nm_s, (1, 2), (3, 4, 0),
+                                      gains, **bkw),
+            lambda: kb.bwd_update_mvm_plain(w, dd, x, nm_s, (1, 2),
+                                            (3, 4, 0), gains, **bkw),
+            lambda: (torch.matmul(dd, w), torch.matmul(sb.T, sa),
+                     torch.matmul(sb.abs().T, sa.abs())),
+            4 * (w.numel() + dd.numel() + x.numel() + b + 2 + 2 * w.numel()),
+            2.0 * b * r * c * (1 + again / b), 4.0 * b * r * c, batch=b)
+        del w, x, dd, sa, sb
+        _free()
+    gain = torch.tensor(0.7, device=DEV)
+    for shape, r, c, slots, bl in (
+            ("t2 hymba in_proj 6482x1601", 6482, 1601, LM_ROWS, 1),
+            ("t2 temporal mamba2 in_proj 3352x769", 3352, 769, LM_B, 10)):
+        rws = update.signed_streams(5, torch.randn(slots, r, generator=g,
+                                                   device=DEV), gain,
+                                    bl).reshape(-1, r).contiguous()
+        cls = update.signed_streams(6, torch.randn(slots, c, generator=g,
+                                                   device=DEV), gain,
+                                    bl).reshape(-1, c).contiguous()
+        m = rws.shape[0]
+        _time_row(rows_out, "pulse_counts", f"{shape} {m} slots",
+                  lambda: kp.pulse_counts(rws, cls),
+                  lambda: kp.pulse_counts_plain(rws, cls),
+                  lambda: (torch.matmul(rws.T, cls),
+                           torch.matmul(rws.abs().T, cls.abs())),
+                  4 * (m * (r + c) + 2 * r * c), 0.0, 4.0 * m * r * c,
+                  batch=slots)
+        del rws, cls
+        _free()
+    b, sq, h, d = SEAMLESS_BATCH, SEAMLESS_PROMPT, 16, 64
+    for case, sk in (("bidirectional", sq), ("cross", sq),
+                     ("cross Sk 1500", 1500)):
+        q, k, v = _qkv(g, b, sq, sk, h, h, d, torch.float32)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa
+        lib_err = float((sdpa().transpose(1, 2) - fa.flash_attention_plain(
+            q, k, v, causal=False)).abs().max())
+        backend = _sdpa_backend(sdpa, qt, kt, vt, None)
+        _time_row(rows_out, "flash_attention",
+                  f"seamless prefill {case} float32 Sq {sq} Sk {sk}",
+                  lambda: fa.flash_attention(q, k, v, causal=False),
+                  lambda: fa.flash_attention_plain(q, k, v, causal=False),
+                  sdpa, (2 * q.numel() + k.numel() + v.numel()) * 4,
+                  4.0 * sq * sk * d * b * h, 0.0, batch=b)
+        rows_out[-1].update(library_kernels=backend,
+                            library_max_abs_err=lib_err)
+        print(f"[time] SDPA without a mask ran {backend}; max|SDPA - plain| "
+              f"{lib_err:.2e}")
+        del q, k, v, qt, kt, vt
+        _free()
+
+
 def summary_line(results):
     """One entry per kernel at the shape named in KERNELS (decode wg/wi
     11008x4096, B=4, for the read kernels; LeNet's K1, W3 or K1 BL=1 for the
@@ -4548,6 +5026,28 @@ def summary_line(results):
             if meta["kind"] == "flash_attention":
                 kernels[-1]["window"] = results["serve_hymba"][
                     "swa_window"]
+        if meta["kind"] in ("noisy_read", "managed_read", "pulse_counts",
+                            "bwd_update", "key_schedule"):
+            # and in t2's mamba2 and hymba runs (warm-up step and 3
+            # replays), with times at their shapes
+            kernels[-1]["launches_t2"] = {
+                label: results[f"lm_train_{label}"]["launches"][meta["kind"]]
+                for label, *_ in T2_RUNS
+                if results[f"lm_train_{label}"]["launches"].get(meta["kind"])}
+            kernels[-1]["t2_time"] = [
+                {k: r[k] for k in ("shape", "batch", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for r in results["times"] if r["kernel"] == kname
+                and r["shape"].startswith("t2 ")]
+        if meta["kind"] in ("managed_read", "flash_attention"):
+            # and in s4's seamless run (a counted greedy_generate)
+            kernels[-1]["launches_s4"] = results["serve_seamless"][
+                "launches"][meta["kind"]]
+            kernels[-1]["s4_time"] = [
+                {k: r[k] for k in ("shape", "batch", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for r in results["times"] if r["kernel"] == kname
+                and r["shape"].startswith("seamless")]
         if meta["kind"] in ("noisy_read", "managed_read", "pulse_counts"):
             # and in g4's chunked 20-step epochs (warm-up step included)
             kernels[-1]["launches_stream"] = {
@@ -4616,6 +5116,16 @@ PHASES = [
     ("e", "kernel times", kernel_times_all),
     ("t", "the analog LM trainer at full width: graphed steps vs the loop, "
      "the convergence runs in their JAX bands", lm_training),
+    # s4 before t2: s4 times the slice's kernels, and t2 profiles replays
+    # of up to 2.4 x 10^5 nodes (after t's profile the profiler already
+    # keeps few device records: those times fall back to events)
+    ("s4", "full-size seamless_m4t_medium serve: the encoder-decoder with "
+     "#8 bidirectional and cross; the slice's kernel times",
+     lambda results: (serve_seamless(results),
+                      slice17_kernel_times(results))),
+    ("t2", "training the ssm and hybrid families: mamba2_130m and "
+     "hymba_1_5b graphed vs the loop, single-shot and temporal routes",
+     family_training),
     # last: after its profile of a 28k-node replay, the profiler kept no
     # device record of most of e's kernels (49 of 73 rows, where the
     # parent's runs lost 0-2)

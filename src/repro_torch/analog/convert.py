@@ -15,8 +15,9 @@ package's seed schedule, so both packages give the same tile seeds.
 :func:`from_jax_params` carries the JAX package's parameters across, and
 :func:`from_jax_opt_state` an optimizer state over them.  The JAX package
 stacks an LM's layers (one leaf per parameter across layers, the layer axis
-first); :func:`stack_layers` writes the port's per-layer list in that
-layout (the LM checkpoint's) and :func:`unstack_layers` reads it back.
+first: ``layers``, and an encoder-decoder's ``enc_layers``);
+:func:`stack_layers` writes the port's per-layer lists in that layout (the
+LM checkpoint's) and :func:`unstack_layers` reads it back.
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ from repro_torch.core.device import DeviceMaps, RPUConfig
 from repro_torch.utils import prng
 
 Params = Any
+
+#: The keys whose value is a stack of layers (a list in the port).
+STACKS = ("layers", "enc_layers")
 
 
 def _is_dense_site(node: Any) -> bool:
@@ -151,9 +155,9 @@ def from_jax_params(tree: Params, *, device="cuda") -> Params:
     JAX tree arrives as ``{"w": array, "seed": key data, "meta": meta}``
     plus ``"maps": {"dw_up", "dw_dn", "bound"}`` when its device maps are
     materialized (the JAX meta object is read by attribute, a conv layer's
-    geometry from ``meta.conv``).  Stacked sites — under the ``layers`` key
-    every leaf has a leading layer axis — are unstacked into a list of
-    per-layer dicts, one tile per layer.  Leaves that are not dense sites
+    geometry from ``meta.conv``).  Stacked sites — under the ``layers`` and
+    ``enc_layers`` keys every leaf has a leading layer axis — are unstacked
+    into a list of per-layer dicts, one tile per layer.  Leaves that are not dense sites
     (an SSD block's ``conv_w``, ``A_log``, ``D``, ``dt_bias`` and norm)
     come across as tensors, and a tree without ``unembed`` (tied
     embeddings) stays without it.
@@ -196,7 +200,7 @@ def from_jax_params(tree: Params, *, device="cuda") -> Params:
 
     out = {}
     for k, v in tree.items():
-        if k == "layers":
+        if k in STACKS:
             n = _stack_depth(v)
             out[k] = [conv(v, i) for i in range(n)]
         else:
@@ -274,13 +278,14 @@ def _unstack(node: Any, n: int) -> List[Any]:
     return [node[i].clone() for i in range(n)]
 
 
-def _at_layers(tree: Any, fn: Callable[[Any], Any]) -> Any:
-    """``tree`` with ``fn`` applied to the value under every ``layers``
-    key (tuples, e.g. ``(params, opt_state)``, and dicts walked)."""
+def _at_layers(tree: Any, fn: Callable[[str, Any], Any]) -> Any:
+    """``tree`` with ``fn(key, value)`` applied to the value under every
+    stack's key (tuples, e.g. ``(params, opt_state)``, and dicts
+    walked)."""
     if isinstance(tree, tuple):
         return tuple(_at_layers(v, fn) for v in tree)
     if isinstance(tree, dict):
-        return {k: fn(v) if k == "layers" else _at_layers(v, fn)
+        return {k: fn(k, v) if k in STACKS else _at_layers(v, fn)
                 for k, v in tree.items()}
     return tree
 
@@ -291,9 +296,11 @@ def stack_layers(tree: Any) -> Any:
     per-layer dicts becomes one dict whose tensors carry a leading layer
     axis, the tiles' seeds a :class:`~repro_torch.utils.prng.KeyStack`,
     and an optimizer state's rank-0 sentinels one for the stack."""
-    return _at_layers(tree, _stack)
+    return _at_layers(tree, lambda _, node: _stack(node))
 
 
-def unstack_layers(tree: Any, n_layers: int) -> Any:
-    """Inverse of :func:`stack_layers` for a stack of ``n_layers``."""
-    return _at_layers(tree, lambda node: _unstack(node, n_layers))
+def unstack_layers(tree: Any, n_layers: int, enc_layers: int = 0) -> Any:
+    """Inverse of :func:`stack_layers` for a stack of ``n_layers`` (and an
+    encoder of ``enc_layers``)."""
+    n = {"layers": n_layers, "enc_layers": enc_layers}
+    return _at_layers(tree, lambda k, node: _unstack(node, n[k]))

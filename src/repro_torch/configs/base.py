@@ -1,12 +1,15 @@
-"""Model configuration dataclasses (the dense, ssm and hybrid families).
+"""Model configuration dataclasses (the dense, ssm, hybrid and audio
+families).
 
 Each ``configs/<id>.py`` exports ``CONFIG`` (the published numbers) and
 ``smoke_config()`` (a reduced same-family config for CPU tests); the
 ``registry`` resolves ``--arch`` names.  The dense decoder, the Mamba-2
 SSD stack (``ssm``) and Hymba's parallel attention + SSD heads
 (``hybrid``) are ported, with sliding-window attention (``swa_window``)
-and tied embeddings.  MoE, VLM and encoder-decoder stacks, QKV bias and
-the int8 KV cache are not part of this package yet.
+and tied embeddings, and the encoder-decoder (``audio``: ``encoder_layers``
+bidirectional blocks over stub frames through an ``adapter``, the decoder's
+blocks with cross attention).  MoE and VLM stacks, QKV bias and the int8
+KV cache are not part of this package yet.
 
 Training: ``remat`` recomputes each layer block in the backward
 (``torch.utils.checkpoint``; ``remat_policy='full'``).  The JAX package's
@@ -41,13 +44,13 @@ class SSMConfig:
 
 
 #: The families this package runs.
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "ssm", "hybrid", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | ssm | hybrid
+    family: str                  # dense | ssm | hybrid | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -60,6 +63,8 @@ class ModelConfig:
     rope_theta: float = 1e4
     tie_embeddings: bool = False          # logits = x @ embed.table.T
     ssm: Optional[SSMConfig] = None       # ssm / hybrid families
+    encoder_layers: int = 0               # enc-dec (seamless): encoder depth
+    frontend: str = "none"                # none | audio_stub
     norm_eps: float = 1e-5
     # numerics
     param_dtype: torch.dtype = torch.bfloat16
@@ -81,7 +86,7 @@ class ModelConfig:
         if self.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {self.family!r}: the port runs {FAMILIES}; the "
-                "moe, vlm and audio families wait (ROADMAP Queue 1, item 6)")
+                "moe and vlm families wait (ROADMAP Queue 1, item 6)")
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
 
@@ -117,7 +122,7 @@ class ModelConfig:
             ssm = d * (2 * din + 2 * self.ssm.d_state) + din * d
         block = {"ssm": ssm, "hybrid": attn + ffn + ssm}.get(self.family,
                                                              attn + ffn)
-        return emb + self.n_layers * block
+        return emb + (self.n_layers + self.encoder_layers) * block
 
     def active_param_count(self) -> int:
         """Active params per token: all of them (no MoE family here)."""

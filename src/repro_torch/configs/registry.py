@@ -2,8 +2,8 @@
 
 Each ``configs/<id>.py`` exports ``CONFIG`` (published numbers) and
 ``smoke_config()``.  The dense models deepseek_7b, qwen3_14b and
-stablelm_3b, the ssm model mamba2_130m and the hybrid hymba_1_5b are
-ported so far.
+stablelm_3b, the ssm model mamba2_130m, the hybrid hymba_1_5b and the
+encoder-decoder seamless_m4t_medium are ported so far.
 """
 
 from __future__ import annotations
@@ -13,10 +13,11 @@ import importlib
 from typing import List
 
 ARCH_IDS: List[str] = ["deepseek_7b", "stablelm_3b", "qwen3_14b",
-                       "mamba2_130m", "hymba_1_5b"]
+                       "mamba2_130m", "seamless_m4t_medium", "hymba_1_5b"]
 
 _ALIASES = {"deepseek-7b": "deepseek_7b", "stablelm-3b": "stablelm_3b",
             "qwen3-14b": "qwen3_14b", "mamba2-130m": "mamba2_130m",
+            "seamless-m4t-medium": "seamless_m4t_medium",
             "hymba-1.5b": "hymba_1_5b"}
 
 

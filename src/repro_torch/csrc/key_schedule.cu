@@ -18,7 +18,11 @@
 // an evaluation batch's first image).  Seed j is key_to_seed of slot
 // seed_slot[j]: mix(mix(k0) ^ k1) (utils/fastrng.py).  Ops run level by
 // level (level[i] = the op's depth below the root), one thread per op of a
-// level: the LeNet step's tree is 44 ops in 3 levels with 28 seeds.
+// level: the LeNet step's tree is 44 ops in 3 levels with 28 seeds.  The
+// keys live in shared memory while they fit in its 48 KB (6144 slots);
+// a larger tree (an LM step whose SSD projections read once per position:
+// ~47k ops in 16 levels) derives them in the output table in device
+// memory, each level's writes made visible to the next by the barrier.
 //
 // Outputs: keys (n_ops + 1, 2) and seeds (n_seeds,) as zero-extended u32
 // words in 64-bit entries (int64 tensors on the torch side).
@@ -58,33 +62,55 @@ __device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1,
   return make_uint2(x0, x1);
 }
 
+// The slots: in shared memory (kShared) or in the output table itself.
+template <bool kShared>
+struct Slots {
+  uint2* smem;
+  unsigned long long* table;
+  __device__ __forceinline__ uint2 get(int s) const {
+    if (kShared) return smem[s];
+    return make_uint2(static_cast<uint32_t>(table[2 * s]),
+                      static_cast<uint32_t>(table[2 * s + 1]));
+  }
+  __device__ __forceinline__ void set(int s, uint2 k) const {
+    if (kShared) {
+      smem[s] = k;
+    } else {
+      table[2 * s] = k.x;
+      table[2 * s + 1] = k.y;
+    }
+  }
+};
+
+template <bool kShared>
 __global__ void __launch_bounds__(THREADS) key_schedule_kernel(
     const long long* __restrict__ base, const long long* __restrict__ counter,
     const int* __restrict__ parent, const unsigned* __restrict__ data,
     const int* __restrict__ level, int n_ops, int n_levels,
     const int* __restrict__ seed_slot, int n_seeds,
-    unsigned long long* __restrict__ keys_out,
-    unsigned long long* __restrict__ seeds_out) {
-  extern __shared__ uint2 key[];  // n_ops + 1 slots
+    unsigned long long* keys_out, unsigned long long* __restrict__ seeds_out) {
+  extern __shared__ uint2 smem[];  // n_ops + 1 slots when kShared
+  const Slots<kShared> key{smem, keys_out};
   if (threadIdx.x == 0)
-    key[0] = threefry2x32(static_cast<uint32_t>(base[0]),
-                          static_cast<uint32_t>(base[1]), 0u,
-                          static_cast<uint32_t>(*counter));
+    key.set(0, threefry2x32(static_cast<uint32_t>(base[0]),
+                            static_cast<uint32_t>(base[1]), 0u,
+                            static_cast<uint32_t>(*counter)));
   __syncthreads();
   for (int l = 1; l <= n_levels; ++l) {
     for (int i = threadIdx.x; i < n_ops; i += THREADS)
       if (level[i] == l) {
-        const uint2 k = key[parent[i]];
-        key[i + 1] = threefry2x32(k.x, k.y, 0u, data[i]);
+        const uint2 k = key.get(parent[i]);
+        key.set(i + 1, threefry2x32(k.x, k.y, 0u, data[i]));
       }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i <= n_ops; i += THREADS) {
-    keys_out[2 * i] = key[i].x;
-    keys_out[2 * i + 1] = key[i].y;
-  }
+  if (kShared)
+    for (int i = threadIdx.x; i <= n_ops; i += THREADS) {
+      keys_out[2 * i] = smem[i].x;
+      keys_out[2 * i + 1] = smem[i].y;
+    }
   for (int j = threadIdx.x; j < n_seeds; j += THREADS) {
-    const uint2 k = key[seed_slot[j]];
+    const uint2 k = key.get(seed_slot[j]);
     seeds_out[j] = analog::mix32(analog::mix32(k.x) ^ k.y);
   }
 }
@@ -104,10 +130,14 @@ extern "C" int key_schedule_launch(const long long* base,
   if (n_ops < 0 || n_seeds < 0 || n_levels < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(uint2) * (static_cast<size_t>(n_ops) + 1);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  keys::key_schedule_kernel<<<1, keys::THREADS, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      base, counter, parent, data, level, n_ops, n_levels, seed_slot, n_seeds,
-      keys, seeds);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (smem <= 48 * 1024)
+    keys::key_schedule_kernel<true><<<1, keys::THREADS, smem, s>>>(
+        base, counter, parent, data, level, n_ops, n_levels, seed_slot,
+        n_seeds, keys, seeds);
+  else
+    keys::key_schedule_kernel<false><<<1, keys::THREADS, 0, s>>>(
+        base, counter, parent, data, level, n_ops, n_levels, seed_slot,
+        n_seeds, keys, seeds);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,10 +14,13 @@ mid-decode as slots free up:
       --continuous --slots 4 --requests 16 --analog-policy lm_managed
 
 ``--arch`` takes every arch of ``configs/registry.py``: the dense
-deepseek_7b, stablelm_3b and qwen3_14b, the ssm mamba2_130m and the hybrid
-hymba_1_5b.  ``--analog-policy`` takes the JAX package's spec language (a
-preset with ``:field=value`` modifiers, inline first-match-wins rules, or a
-JSON rules file) and prints the resolved per-layer policy table.  Runs on
+deepseek_7b, stablelm_3b and qwen3_14b, the ssm mamba2_130m, the hybrid
+hymba_1_5b and the encoder-decoder seamless_m4t_medium, whose speech
+frontend is a stub: ``prompt_len`` random frames per row (``make_frames``,
+as the JAX driver draws them) feed its encoder (static batches only).
+``--analog-policy`` takes the JAX package's spec language (a preset with
+``:field=value`` modifiers, inline first-match-wins rules, or a JSON rules
+file) and prints the resolved per-layer policy table.  Runs on
 the card (``--device cuda``, the default) unless ``--device cpu`` is given.
 """
 
@@ -72,6 +75,18 @@ def make_prompts(cfg, batch: int, prompt_len: int, seed: int, device):
                            dtype=torch.int64, device=device)
 
 
+def make_frames(cfg, batch: int, prompt_len: int, seed: int, device):
+    """An encoder-decoder's stub frames (None for other families): the JAX
+    driver's ``normal(0, 0.5, (batch, prompt_len, d_model))``, drawn after
+    the prompts from the same generator, in the act dtype."""
+    if cfg.encoder_layers == 0:
+        return None
+    rng = np.random.default_rng(seed)
+    rng.integers(0, cfg.vocab, (batch, prompt_len))     # the prompts' draw
+    frames = rng.normal(0, 0.5, (batch, prompt_len, cfg.d_model))
+    return torch.from_numpy(frames).to(device=device, dtype=cfg.act_dtype)
+
+
 def serve(arch: str, *, batch: int, prompt_len: int, gen: int,
           smoke: bool = False, seed: int = 0,
           analog_policy: Optional[str] = None, device="cuda",
@@ -82,10 +97,12 @@ def serve(arch: str, *, batch: int, prompt_len: int, gen: int,
     if params is None:
         params, akey = init(cfg, seed, device)
     prompts = make_prompts(cfg, batch, prompt_len, seed, device)
+    frames = make_frames(cfg, batch, prompt_len, seed, device)
     t0 = time.perf_counter()
     with torch.no_grad():
         out, _ = engine.greedy_generate(params, prompts, cfg, n_steps=gen,
-                                        max_seq=prompt_len + gen, akey=akey)
+                                        max_seq=prompt_len + gen,
+                                        enc_embeds=frames, akey=akey)
     out = out.cpu().numpy()
     dt = time.perf_counter() - t0
     print(f"[serve {arch}] generated {out.shape} in {dt:.2f}s "

@@ -6,7 +6,8 @@
       --analog-policy "*attn*=managed,*mlp*=rpu_baseline"
   python -m repro_torch.launch.train --arch lstm --analog --steps 5
 
-LM archs (the dense ``deepseek_7b`` and ``qwen3_14b``): the deterministic
+LM archs (the dense ``deepseek_7b``, ``stablelm_3b`` and ``qwen3_14b``, the
+ssm ``mamba2_130m`` and the hybrid ``hymba_1_5b``): the deterministic
 token pipeline (``data/tokens.py``), digital AdamW or per-layer analog
 training (``--analog-policy`` rules, or bare ``--analog``: the uniform
 NM+BM+UM(BL=1) config on the block projections, stepped by pure
@@ -66,6 +67,8 @@ from repro_torch.train import engine as eng
 from repro_torch.utils import prng
 
 SEQ_ARCHS = ("lstm", "gru")
+#: The LM families the driver trains (the encoder-decoder serves only).
+TRAIN_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def build(kind: str, *, batch: int, seq: int, smoke: bool, analog: bool,
@@ -185,8 +188,8 @@ def train_sequence(kind: str, *, steps: int, batch: int, seq: int,
 
 
 def _build_batch(cfg, toks, seq):
-    """The train-step batch dict of ``toks`` (B, S).  The dense family has
-    no frontend or encoder stream; the engine's chunks take the tokens
+    """The train-step batch dict of ``toks`` (B, S).  No trained family has
+    a frontend or encoder stream; the engine's chunks take the tokens
     (chunk, B, S) alone."""
     return {"tokens": toks}
 
@@ -268,18 +271,18 @@ def lm_config(arch: str, *, smoke: bool, analog: bool = False,
               update_chunk: Optional[int] = None):
     """The LM config of the driver's flags, with the JAX driver's refusals;
     analog configs train float32 params."""
-    dense = [a for a in registry.ARCH_IDS
-             if registry.get_config(a).family == "dense"]
+    trained = [a for a in registry.ARCH_IDS
+               if registry.get_config(a).family in TRAIN_FAMILIES]
     try:
         cfg = registry.get_config(arch, smoke=smoke)
     except KeyError:
         cfg = None
-    if cfg is None or cfg.family != "dense":
-        # the ssm and hybrid families serve (launch/serve.py) but do not
-        # train yet: their temporal backward through the SSD projections
+    if cfg is None or cfg.family not in TRAIN_FAMILIES:
+        # the encoder-decoder serves (launch/serve.py) but does not train
+        # yet: its encoder's backward and the cross attention in the graph
         raise NotImplementedError(
-            f"--arch {arch!r}: the port trains the dense LMs {dense} and "
-            f"the recurrent cells {SEQ_ARCHS}; the ssm, hybrid, MoE and "
+            f"--arch {arch!r}: the port trains the LMs {trained} and the "
+            f"recurrent cells {SEQ_ARCHS}; the MoE, VLM and "
             "encoder-decoder families wait (ROADMAP Queue 1, item 6)")
     if fuse_bwd_update and not use_pallas and not analog_policy:
         raise ValueError("--fuse-bwd-update requires --use-pallas (the "
@@ -484,8 +487,9 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="a dense LM of the registry (deepseek_7b, "
-                         "stablelm_3b, qwen3_14b) or a recurrent cell "
+                    help="an LM of the registry (deepseek_7b, "
+                         "stablelm_3b, qwen3_14b, mamba2_130m, hymba_1_5b) "
+                         "or a recurrent cell "
                          f"({', '.join(SEQ_ARCHS)})")
     ap.add_argument("--steps", type=int, default=100,
                     help="train steps (epochs over the copy-task split for "

@@ -1,7 +1,10 @@
-"""Grouped-query causal self-attention with optional qk RMS-norm (qwen3)
-and a sliding window (hymba): online-softmax prefill and single-token
-decode over a KV cache, a ring buffer of ``swa_window`` slots when the
-cache holds exactly that many.
+"""Grouped-query attention with optional qk RMS-norm (qwen3) and a sliding
+window (hymba): online-softmax prefill and single-token decode over a KV
+cache, a ring buffer of ``swa_window`` slots when the cache holds exactly
+that many.  Bidirectional (``causal=False``: seamless's encoder) and cross
+attention (``x_kv``: the decoder over the encoder's output, no RoPE; its
+decode reads the static cross K/V and writes nothing) as in the JAX
+package.
 
 The projections go through ``layers.dense_apply``, so an analog policy
 turns them into managed array reads; their read keys are
@@ -28,8 +31,10 @@ Tensor = torch.Tensor
 NEG_INF = -1e30
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, device) -> Dict[str, Any]:
-    """QKVO projection params (digital; analog conversion is policy-driven)."""
+def init(gen: torch.Generator, cfg: ModelConfig, device, *,
+         cross: bool = False) -> Dict[str, Any]:
+    """QKVO projection params (digital; analog conversion is policy-driven).
+    A cross attention's (``cross``) are the same four projections."""
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     mk = lambda d_in, d_out: L.dense_init(gen, d_in, d_out, cfg.param_dtype,
                                           device)
@@ -115,12 +120,15 @@ def _flash(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, window: int = 0,
 
 
 def forward(p, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
-            akey=None, chunk_q: int = 512, chunk_k: int = 512,
-            return_kv: bool = False):
-    """Causal self-attention over a full sequence (prefill)."""
-    q, k, v = _project_qkv(p, x, x, cfg, akey)
-    q = L.rope(q, positions, cfg.rope_theta)
-    k = L.rope(k, positions, cfg.rope_theta)
+            causal: bool = True, x_kv=None, akey=None, chunk_q: int = 512,
+            chunk_k: int = 512, return_kv: bool = False):
+    """Attention over a full sequence (training and prefill): causal or
+    bidirectional self-attention, or cross attention of ``x`` over
+    ``x_kv`` (B, Sk, d), where neither side takes RoPE."""
+    q, k, v = _project_qkv(p, x, x if x_kv is None else x_kv, cfg, akey)
+    if x_kv is None:
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
     if cfg.use_flash_kernel:
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
@@ -130,12 +138,12 @@ def forward(p, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
                 "the flash-attention kernel has no backward; train with "
                 "use_flash_kernel=False (the chunked attention)")
         with torch.profiler.record_function("flash_attention"):
-            out = fa.flash_attention(q, k, v, causal=True,
+            out = fa.flash_attention(q, k, v, causal=causal,
                                      window=cfg.swa_window)
     else:
         n_rep = cfg.n_heads // cfg.n_kv_heads
         out = _flash(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
-                     causal=True, window=cfg.swa_window, chunk_q=chunk_q,
+                     causal=causal, window=cfg.swa_window, chunk_q=chunk_q,
                      chunk_k=chunk_k)
     out = out.reshape(*out.shape[:-2], cfg.n_heads * cfg.head_dim)
     okey = None if akey is None else prng.fold_in(akey, 3)
@@ -162,33 +170,44 @@ def _ring(cfg: ModelConfig, cache: Tensor) -> bool:
 
 
 def decode(p, x_t: Tensor, cache_k: Tensor, cache_v: Tensor, pos: Tensor,
-           cfg: ModelConfig, *, akey=None):
+           cfg: ModelConfig, *, cross: bool = False, akey=None):
     """Single-token decode.  x_t: (B, 1, d); cache_k/v: (B, S_cache, Hkv,
-    hd), written at ``pos`` (a ring: at ``pos % swa_window``).  Returns
-    (y, new_k, new_v)."""
-    q, k_new, v_new = _project_qkv(p, x_t, x_t, cfg, akey)
-    q = L.rope(q, pos[..., None], cfg.rope_theta)
-    k_new = L.rope(k_new, pos[..., None], cfg.rope_theta)
-    ring = _ring(cfg, cache_k)
-    slot = pos % cfg.swa_window if ring else pos
-    cache_k = _scatter_time(cache_k, k_new, slot)
-    cache_v = _scatter_time(cache_v, v_new, slot)
+    hd), written at ``pos`` (a ring: at ``pos % swa_window``); with
+    ``cross`` the encoder's static K/V, every slot valid, nothing written
+    and no RoPE.  Returns (y, new_k, new_v)."""
+    if cross:
+        # only q is read: the JAX package projects k and v too and its jit
+        # drops them, unused
+        k = None if akey is None else prng.fold_in(akey, 0)
+        q = L.dense_apply(p["q"], x_t, key=k).reshape(
+            *x_t.shape[:-1], cfg.n_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = L.rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
+    else:
+        q, k_new, v_new = _project_qkv(p, x_t, x_t, cfg, akey)
+        q = L.rope(q, pos[..., None], cfg.rope_theta)
+        k_new = L.rope(k_new, pos[..., None], cfg.rope_theta)
+        ring = _ring(cfg, cache_k)
+        slot = pos % cfg.swa_window if ring else pos
+        cache_k = _scatter_time(cache_k, k_new, slot)
+        cache_v = _scatter_time(cache_v, v_new, slot)
 
     n_rep = cfg.n_heads // cfg.n_kv_heads
     kk = _repeat_kv(cache_k, n_rep)
     vv = _repeat_kv(cache_v, n_rep)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) \
         * (cfg.head_dim ** -0.5)
-    k_pos = torch.arange(cache_k.shape[1], device=x_t.device)
-    if ring:
-        # slot s holds absolute position pos - age, age = (pos - s) mod
-        # window; valid once written
-        w = cfg.swa_window
-        age = (pos[:, None] % w - k_pos[None, :]) % w
-        mask = ((pos[:, None] - age) >= 0)[:, None, None, :]
-    else:
-        mask = (k_pos[None, :] <= pos[:, None])[:, None, None, :]
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    if not cross:
+        k_pos = torch.arange(cache_k.shape[1], device=x_t.device)
+        if ring:
+            # slot s holds absolute position pos - age, age = (pos - s) mod
+            # window; valid once written
+            w = cfg.swa_window
+            age = (pos[:, None] % w - k_pos[None, :]) % w
+            mask = ((pos[:, None] - age) >= 0)[:, None, None, :]
+        else:
+            mask = (k_pos[None, :] <= pos[:, None])[:, None, None, :]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     a = torch.softmax(s, dim=-1).to(vv.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", a, vv)
     out = out.reshape(*x_t.shape[:-1], cfg.n_heads * cfg.head_dim)

@@ -132,7 +132,6 @@ def _ssd_chunked(xh: Tensor, dt: Tensor, a_log: Tensor, b: Tensor,
     a = -torch.exp(a_log)                                  # (H,) negative
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
                                  device=xh.device))[None, :, :, None]
-    neg = torch.tensor(-1e30, dtype=torch.float32, device=xh.device)
     state = (torch.zeros((bsz, h, p_dim, n), dtype=torch.float32,
                          device=xh.device)
              if state0 is None else state0.to(torch.float32))
@@ -145,9 +144,9 @@ def _ssd_chunked(xh: Tensor, dt: Tensor, a_log: Tensor, b: Tensor,
         total = cum[:, -1]                                 # (B,H)
         # intra-chunk: y_i += sum_{j<=i} exp(cum_i - cum_j) dt_j (C_i.B_j)
         # x_j; the exponent is masked before exp (exp of a masked large
-        # value is inf)
+        # value is inf), by a Python scalar: no host copy inside a capture
         diff = cum[:, :, None, :] - cum[:, None, :, :]     # (B,Qi,Qj,H)
-        decay = torch.exp(torch.where(mask, diff, neg))
+        decay = torch.exp(torch.where(mask, diff, -1e30))
         cb = torch.einsum("bin,bjn->bij", cc, bc)          # (B,Qi,Qj)
         w_ij = cb[..., None] * decay * dtc[:, None, :, :]  # (B,Qi,Qj,H)
         y_intra = torch.einsum("bijh,bjhp->bihp", w_ij, xc)

@@ -3,6 +3,9 @@
   dense  : [attn + SwiGLU]
   ssm    : [SSD]                      (mamba2: no attention, no MLP)
   hybrid : [attn || SSD  + SwiGLU]    (hymba: parallel heads, averaged)
+  audio  : encoder [bi-attn + SwiGLU] + decoder [self-attn + cross-attn
+           + SwiGLU]                  (seamless: stub frames through an
+                                       adapter into the encoder)
 
 The unembedding is its own projection, or the embedding table with
 ``tie_embeddings`` (mamba2).
@@ -11,7 +14,10 @@ Parameters are plain dicts; the layers of the stack are a Python list of
 per-layer dicts walked by a Python loop (the JAX package scans over stacked
 layers).  Analog mode threads a per-layer key ``fold_in(akey, layer)``
 through every projection, and ``fold_in(akey, 203)`` through an untied
-unembed.  A hybrid block's SSD branch reads under ``fold_in(akey, 101)``
+unembed.  The encoder's layers read under ``fold_in(akey, 1000 + li)``,
+the adapter under ``fold_in(akey, 202)`` and a decoder block's cross
+attention under ``fold_in(layer key, 102)``.  A hybrid block's SSD branch
+reads under ``fold_in(akey, 101)``
 in ``_block_apply`` and ``block_decode``, but under the layer key itself
 in ``block_prefill``, where its ``in_proj`` read shares the attention's q
 key: the JAX package's keys, copied as they are.
@@ -40,11 +46,15 @@ Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 
-def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def _block_init(gen: torch.Generator, cfg: ModelConfig, device, *,
+                cross: bool = False) -> Params:
     p: Params = {}
     if cfg.family != "ssm":
         p["ln_attn"] = L.rmsnorm_init(cfg.d_model, cfg.param_dtype, device)
         p["attn"] = attention.init(gen, cfg, device)
+    if cross:
+        p["ln_cross"] = L.rmsnorm_init(cfg.d_model, cfg.param_dtype, device)
+        p["cross"] = attention.init(gen, cfg, device, cross=True)
     if cfg.family in ("ssm", "hybrid"):
         p["ln_ssm"] = L.rmsnorm_init(cfg.d_model, cfg.param_dtype, device)
         p["ssm"] = ssm.init(gen, cfg, device)
@@ -57,8 +67,10 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 def _jax_draws(seed: int, cfg: ModelConfig, device) -> Params:
     """The JAX package's ``init_lm`` weights for ``key(seed)``: its key
     tree (``split(key, 6)``; per layer ``split(split(k1, L)[l], 8)``: q, k,
-    v, o from ``split(., 4)`` of the first, the SSD block's from ``split(.,
-    6)`` of the third, wi, wg, wo from ``split(., 3)`` of the fourth), each
+    v, o from ``split(., 4)`` of the first (the cross attention's of the
+    second), the SSD block's from ``split(., 6)`` of the third, wi, wg, wo
+    from ``split(., 3)`` of the fourth; the encoder's layers the same from
+    ``split(k2, L_enc)``, the adapter from k3), each
     weight ``scale * truncated_normal(-2, 2)`` drawn on the host
     (``prng.truncated_normal``, within 3 ulp of JAX's)."""
     def tn(k, shape, scale):
@@ -75,20 +87,22 @@ def _jax_draws(seed: int, cfg: ModelConfig, device) -> Params:
 
     d, h, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                         cfg.head_dim, cfg.d_ff)
-    ks = prng.split(prng.key(seed), 6)
-    layers = []
-    for lk in prng.split(ks[1], cfg.n_layers):
+
+    def attn(k):
+        ka = prng.split(k, 4)
+        a = {"q": dense(ka[0], d, h * hd), "k": dense(ka[1], d, hkv * hd),
+             "v": dense(ka[2], d, hkv * hd), "o": dense(ka[3], h * hd, d)}
+        if cfg.qk_norm:
+            a["q_norm"], a["k_norm"] = norm(hd), norm(hd)
+        return a
+
+    def block(lk, cross):
         kb = prng.split(lk, 8)
         layer: Params = {}
         if cfg.family != "ssm":
-            ka = prng.split(kb[0], 4)
-            attn = {"q": dense(ka[0], d, h * hd),
-                    "k": dense(ka[1], d, hkv * hd),
-                    "v": dense(ka[2], d, hkv * hd),
-                    "o": dense(ka[3], h * hd, d)}
-            if cfg.qk_norm:
-                attn["q_norm"], attn["k_norm"] = norm(hd), norm(hd)
-            layer.update(ln_attn=norm(d), attn=attn)
+            layer.update(ln_attn=norm(d), attn=attn(kb[0]))
+        if cross:
+            layer.update(ln_cross=norm(d), cross=attn(kb[1]))
         if cfg.family in ("ssm", "hybrid"):
             d_in, nh, _, n = ssm.dims(cfg)
             conv_ch = d_in + 2 * n
@@ -108,9 +122,20 @@ def _jax_draws(seed: int, cfg: ModelConfig, device) -> Params:
             layer.update(ln_ffn=norm(d), mlp={
                 "wi": dense(km[0], d, f), "wg": dense(km[1], d, f),
                 "wo": dense(km[2], f, d)})
-        layers.append(layer)
+        return layer
+
+    ks = prng.split(prng.key(seed), 6)
+    cross = cfg.encoder_layers > 0
     p = {"embed": {"table": tn(ks[0], (cfg.vocab, d), 0.02)},
-         "layers": layers, "final_norm": norm(d)}
+         "layers": [block(lk, cross)
+                    for lk in prng.split(ks[1], cfg.n_layers)]}
+    if cross:
+        p["enc_layers"] = [block(lk, False) for lk in
+                           prng.split(ks[2], cfg.encoder_layers)]
+        p["enc_norm"] = norm(d)
+    if cfg.frontend != "none":
+        p["adapter"] = dense(ks[3], d, d)
+    p["final_norm"] = norm(d)
     if not cfg.tie_embeddings:
         p["unembed"] = dense(ks[4], d, cfg.vocab)
     return p
@@ -133,14 +158,23 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda",
     else:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
+        cross = cfg.encoder_layers > 0
         p = {
             "embed": L.embed_init(gen, cfg.vocab, cfg.d_model,
                                   cfg.param_dtype, device),
-            "layers": [_block_init(gen, cfg, device)
+            "layers": [_block_init(gen, cfg, device, cross=cross)
                        for _ in range(cfg.n_layers)],
-            "final_norm": L.rmsnorm_init(cfg.d_model, cfg.param_dtype,
-                                         device),
         }
+        if cross:
+            p["enc_layers"] = [_block_init(gen, cfg, device)
+                               for _ in range(cfg.encoder_layers)]
+            p["enc_norm"] = L.rmsnorm_init(cfg.d_model, cfg.param_dtype,
+                                           device)
+        if cfg.frontend != "none":
+            p["adapter"] = L.dense_init(gen, cfg.d_model, cfg.d_model,
+                                        cfg.param_dtype, device)
+        p["final_norm"] = L.rmsnorm_init(cfg.d_model, cfg.param_dtype,
+                                         device)
         if not cfg.tie_embeddings:
             p["unembed"] = L.dense_init(gen, cfg.d_model, cfg.vocab,
                                         cfg.param_dtype, device)
@@ -157,37 +191,49 @@ def _hybrid_key(akey):
     return None if akey is None else prng.fold_in(akey, 101)
 
 
+def _cross_key(akey):
+    return None if akey is None else prng.fold_in(akey, 102)
+
+
 def _block_apply(p, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
-                 akey=None) -> Tensor:
-    """Full-sequence block (no family here has an aux loss)."""
+                 causal: bool = True, enc_out=None, akey=None) -> Tensor:
+    """Full-sequence block (no family here has an aux loss); ``enc_out``
+    (B, S_src, d) adds the decoder's cross attention."""
     if cfg.family == "ssm":
         h = L.rmsnorm_apply(p["ln_ssm"], x, cfg.norm_eps)
         return x + ssm.forward(p["ssm"], h, cfg, akey=akey)
     h = L.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
     att = attention.forward(p["attn"], h, cfg, positions=positions,
-                            akey=akey)
+                            causal=causal, akey=akey)
     if cfg.family == "hybrid":
         hs = L.rmsnorm_apply(p["ln_ssm"], x, cfg.norm_eps)
         sout = ssm.forward(p["ssm"], hs, cfg, akey=_hybrid_key(akey))
         att = 0.5 * (att + sout)          # hymba: parallel heads, averaged
     x = x + att
+    if enc_out is not None:
+        h = L.rmsnorm_apply(p["ln_cross"], x, cfg.norm_eps)
+        x = x + attention.forward(p["cross"], h, cfg, positions=positions,
+                                  causal=False, x_kv=enc_out,
+                                  akey=_cross_key(akey))
     h = L.rmsnorm_apply(p["ln_ffn"], x, cfg.norm_eps)
     return x + mlp.apply(p["mlp"], h, cfg, akey=akey)
 
 
 def _layers(layers, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
-            akey=None) -> Tensor:
-    """The layer loop: layer ``li`` under ``fold_in(akey, li)``, each block
-    recomputed in the backward under ``cfg.remat``."""
+            causal: bool = True, enc_out=None, akey=None,
+            key_base: int = 0) -> Tensor:
+    """The layer loop: layer ``li`` under ``fold_in(akey, key_base + li)``,
+    each block recomputed in the backward under ``cfg.remat``."""
     if cfg.remat and cfg.remat_policy == "dots":
         raise NotImplementedError(
             "remat_policy='dots' saves the projection outputs through an "
             "XLA checkpoint policy with no PyTorch counterpart that saves "
             "the same values (ROADMAP Queue 1); use 'full'")
     for li, layer_p in enumerate(layers):
-        lk = None if akey is None else prng.fold_in(akey, li)
+        lk = None if akey is None else prng.fold_in(akey, key_base + li)
         block = lambda xx, p=layer_p, k=lk: _block_apply(  # noqa: E731
-            p, xx, cfg, positions=positions, akey=k)
+            p, xx, cfg, positions=positions, causal=causal,
+            enc_out=enc_out, akey=k)
         if cfg.remat and torch.is_grad_enabled():
             # the reads draw no torch RNG: nothing to stash for the
             # recompute
@@ -198,13 +244,35 @@ def _layers(layers, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
     return x
 
 
+def encode(params: Params, enc_embeds: Tensor, cfg: ModelConfig, dtype,
+           akey=None) -> Tensor:
+    """The encoder's output (B, S_src, d): the stub frames ``enc_embeds``
+    in ``dtype`` through the adapter (key ``fold_in(akey, 202)``), the
+    bidirectional layers (``fold_in(akey, 1000 + li)``) and ``enc_norm``."""
+    if enc_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                         "enc_embeds (B, S_src, d_model)")
+    e = enc_embeds.to(dtype)
+    if "adapter" in params:
+        ek = None if akey is None else prng.fold_in(akey, 202)
+        e = L.dense_apply(params["adapter"], e, key=ek)
+    e_pos = torch.arange(e.shape[1], device=e.device)[None]
+    e = _layers(params["enc_layers"], e, cfg, positions=e_pos,
+                causal=False, akey=akey, key_base=1000)
+    return L.rmsnorm_apply(params["enc_norm"], e, cfg.norm_eps)
+
+
 def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
-            akey=None) -> Tuple[Tensor, Tensor]:
+            enc_embeds=None, akey=None) -> Tuple[Tensor, Tensor]:
     """Training forward -> ``(logits, aux)``; ``tokens`` (B, S), ``aux`` a
-    0-d float32 zero (the dense family has no auxiliary loss)."""
+    0-d float32 zero (no family here has an auxiliary loss);
+    ``enc_embeds`` (B, S_src, d) feed an encoder-decoder's encoder."""
     x = L.embed_apply(params["embed"], tokens)
+    enc_out = (encode(params, enc_embeds, cfg, x.dtype, akey)
+               if cfg.encoder_layers > 0 else None)
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    x = _layers(params["layers"], x, cfg, positions=positions, akey=akey)
+    x = _layers(params["layers"], x, cfg, positions=positions,
+                enc_out=enc_out, akey=akey)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return (unembed(params, x, cfg, akey),
             torch.zeros((), dtype=torch.float32, device=x.device))
@@ -232,8 +300,9 @@ def _ring_cache_from_full(k: Tensor, window: int) -> Tensor:
 
 
 def block_prefill(p, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
-                  cache_len: int, akey=None):
-    """Full-sequence block that also emits its decode cache."""
+                  cache_len: int, enc_out=None, akey=None):
+    """Full-sequence block that also emits its decode cache (with
+    ``enc_out``, the static cross K/V ``cross_k``/``cross_v``)."""
     cache: Dict[str, Tensor] = {}
     if cfg.family != "ssm":
         h = L.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
@@ -259,6 +328,13 @@ def block_prefill(p, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
     if cfg.family == "hybrid":
         att = 0.5 * (att + sout)
     x = x + att
+    if enc_out is not None:
+        # the cross attention's memory, projected once
+        h = L.rmsnorm_apply(p["ln_cross"], x, cfg.norm_eps)
+        y, (cache["cross_k"], cache["cross_v"]) = attention.forward(
+            p["cross"], h, cfg, positions=positions, causal=False,
+            x_kv=enc_out, akey=_cross_key(akey), return_kv=True)
+        x = x + y
     h = L.rmsnorm_apply(p["ln_ffn"], x, cfg.norm_eps)
     return x + mlp.apply(p["mlp"], h, cfg, akey=akey), cache
 
@@ -284,5 +360,11 @@ def block_decode(p, x_t: Tensor, cache: Dict[str, Tensor], pos: Tensor,
     if cfg.family == "hybrid":
         att = 0.5 * (att + ssm_step(_hybrid_key(akey)))
     x_t = x_t + att
+    if "cross_k" in cache:
+        h = L.rmsnorm_apply(p["ln_cross"], x_t, cfg.norm_eps)
+        yc, _, _ = attention.decode(p["cross"], h, cache["cross_k"],
+                                    cache["cross_v"], pos, cfg, cross=True,
+                                    akey=_cross_key(akey))
+        x_t = x_t + yc
     h = L.rmsnorm_apply(p["ln_ffn"], x_t, cfg.norm_eps)
     return x_t + mlp.apply(p["mlp"], h, cfg, akey=akey), new_cache

@@ -10,7 +10,10 @@ Caches are dicts of tensors stacked over layers (leading L axis) plus the
 per-row position ``pos`` (int32, as in the JAX package): ``k``/``v`` for
 attention (a ring of ``swa_window`` slots when the window is shorter than
 ``max_seq``; no KV cache for the ssm family), ``ssm_conv`` and
-``ssm_state`` for the SSD blocks.
+``ssm_state`` for the SSD blocks, and an encoder-decoder's static cross
+attention memory ``cross_k``/``cross_v`` (B, S_src, Hkv, hd), projected
+once by the prefill from the encoder's output (``enc_embeds``: the stub
+frames) and read, never written, by every decode step.
 """
 
 from __future__ import annotations
@@ -48,9 +51,14 @@ def cache_len_for(cfg: ModelConfig, max_seq: int) -> int:
     return max_seq
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+#: The cache leaves a decode step reads and never writes.
+STATIC = ("cross_k", "cross_v")
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, src_len: int = 0,
                device="cuda") -> Dict[str, Tensor]:
-    """Zero-initialised decode state."""
+    """Zero-initialised decode state (``src_len``: an encoder-decoder's
+    source length)."""
     c: Dict[str, Tensor] = {}
     n, cl = cfg.n_layers, cache_len_for(cfg, max_seq)
     if cfg.family != "ssm":
@@ -61,6 +69,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         st = S.init_state(cfg, batch, device=device)
         c["ssm_conv"] = st["conv"][None].repeat(n, 1, 1, 1)
         c["ssm_state"] = st["ssm"][None].repeat(n, 1, 1, 1, 1)
+    if cfg.encoder_layers > 0:
+        shape = (n, batch, src_len, cfg.n_kv_heads, cfg.head_dim)
+        c["cross_k"] = torch.zeros(shape, dtype=cfg.act_dtype, device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=cfg.act_dtype, device=device)
     c["pos"] = torch.zeros(batch, dtype=torch.int32, device=device)
     return c
 
@@ -70,16 +82,19 @@ def _stack(caches) -> Dict[str, Tensor]:
 
 
 def prefill(params, tokens: Tensor, cfg: ModelConfig, *, max_seq: int,
-            akey=None) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Process the prompt; returns (last-position logits, decode cache)."""
+            enc_embeds=None, akey=None) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Process the prompt (and an encoder-decoder's ``enc_embeds`` (B,
+    S_src, d)); returns (last-position logits, decode cache)."""
     x = L.embed_apply(params["embed"], tokens)
+    enc_out = (T.encode(params, enc_embeds, cfg, x.dtype, akey)
+               if cfg.encoder_layers > 0 else None)
     positions = torch.arange(x.shape[1], device=x.device)[None]
     cl = cache_len_for(cfg, max_seq)
     caches = []
     for li, layer_p in enumerate(params["layers"]):
         lk = None if akey is None else prng.fold_in(akey, li)
         x, cache = T.block_prefill(layer_p, x, cfg, positions=positions,
-                                   cache_len=cl, akey=lk)
+                                   cache_len=cl, enc_out=enc_out, akey=lk)
         caches.append(cache)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     logits = T.unembed(params, x[:, -1:], cfg, akey)
@@ -104,18 +119,21 @@ def serve_step(params, tokens_t: Tensor, cache: Dict[str, Tensor],
         caches.append(nc)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     logits = T.unembed(params, x, cfg, akey)
-    new_cache = _stack(caches)
+    new_cache = _stack([{k: v for k, v in c.items() if k not in STATIC}
+                        for c in caches])
+    new_cache.update({k: cache[k] for k in STATIC if k in cache})
     new_cache["pos"] = pos + 1
     return logits, new_cache
 
 
 def greedy_generate(params, prompt: Tensor, cfg: ModelConfig, *,
-                    n_steps: int, max_seq: int, akey=None):
+                    n_steps: int, max_seq: int, enc_embeds=None, akey=None):
     """Batched greedy loop: prefill with the base key, then decode step
     ``i`` with ``decode_step_key(akey, i)``.  Returns (tokens (B, n_steps),
     cache).  A per-request run of it is the continuous-batching
     scheduler's token oracle (``serve/scheduler.py``)."""
-    logits, cache = prefill(params, prompt, cfg, max_seq=max_seq, akey=akey)
+    logits, cache = prefill(params, prompt, cfg, max_seq=max_seq,
+                            enc_embeds=enc_embeds, akey=akey)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     toks = [tok]
     for i in range(n_steps - 1):

@@ -99,6 +99,11 @@ class ContinuousBatchingScheduler:
                  max_seq: int, eos_id: Optional[int] = None,
                  akey=None, plan: Optional[MeshPlan] = None):
         self._init_bookkeeping(slots, eos_id)
+        if cfg.encoder_layers > 0:
+            raise NotImplementedError(
+                "continuous batching does not thread encoder memories yet; "
+                "enc-dec models serve through the static "
+                "engine.greedy_generate path")
         if plan is not None and plan.data > 1:
             raise NotImplementedError(
                 f"mesh plan {plan}: the slot pool lives on one card; "

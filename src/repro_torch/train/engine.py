@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import functools
 import gc
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -129,6 +130,9 @@ class _Graphed:
         self.ctr = torch.zeros(2, dtype=torch.int64, device=self.device)
         self.graph = self.stream = self.out = None
         self.captured: Dict[str, int] = {}  # launches per replay, by kind
+        # host seconds of the warm-up step and of the capture (with its
+        # instantiation)
+        self.seconds: Dict[str, float] = {}
 
     def body(self, state, root: prng.DeviceKey) -> torch.Tensor:
         """One step on ``state`` under the tape's root key; returns its
@@ -148,6 +152,7 @@ class _Graphed:
             self._recorded(warm_state)
             self.state = state
             return
+        t0 = time.perf_counter()
         s = self.stream = torch.cuda.Stream(self.device)
         s.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(s):
@@ -159,6 +164,7 @@ class _Graphed:
                 torch.cuda.set_sync_debug_mode(mode)
             self.tape.program()           # the tape's upload, before capture
         torch.cuda.current_stream(self.device).wait_stream(s)
+        t1 = time.perf_counter()
         # keep_graph: the captured nodes stay readable (graph.debug_dump
         # writes what a replay launches); it keeps the node list on the
         # host, and a replay runs the instantiated graph either way
@@ -178,6 +184,8 @@ class _Graphed:
             if collecting:
                 gc.enable()
         self.graph.instantiate()
+        self.seconds = dict(warm_up=t1 - t0,
+                            capture=time.perf_counter() - t1)
         # the wrappers counted at the capture, which launches nothing; each
         # replay launches what they counted
         self.captured = {k: n - before[k]

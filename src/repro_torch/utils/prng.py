@@ -49,9 +49,11 @@ import torch
 Key = Tuple[int, int]
 
 _M32 = 0xFFFFFFFF
-#: Key slots of a :class:`KeyTape`: the key-schedule kernel holds every key
-#: of a step in its 48 KB of shared memory, 8 bytes a key.
-TAPE_SLOTS = 48 * 1024 // 8
+#: Key slots of a :class:`KeyTape`.  The key-schedule kernel holds a step's
+#: keys in its 48 KB of shared memory, 8 bytes a key, up to 6144 slots, and
+#: in the key table in device memory above that (an LM step whose SSD
+#: projections read once per position records ~47k derivations).
+TAPE_SLOTS = 1 << 16
 # (rotation, 32 - rotation) for the two alternating groups of four rounds
 _ROT = tuple(tuple((r, 32 - r) for r in g)
              for g in ((13, 15, 26, 6), (17, 29, 16, 24)))

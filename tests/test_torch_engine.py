@@ -113,8 +113,8 @@ def test_tape_refuses_a_changed_tree():
 
 
 def test_tape_holds_what_the_kernel_can():
-    """A tape takes as many keys as the key-schedule kernel keeps in shared
-    memory (TAPE_SLOTS, the root included) and refuses one more."""
+    """A tape takes as many keys as its tables hold (TAPE_SLOTS, the root
+    included) and refuses one more."""
     tape = prng.KeyTape("cpu")
     root = tape.begin()
     for i in range(prng.TAPE_SLOTS - 1):

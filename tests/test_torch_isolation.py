@@ -94,3 +94,15 @@ def test_walks_the_ssm_hybrid_and_serving_modules():
             ("configs", "registry.py"), ("configs", "stablelm_3b.py"),
             ("configs", "mamba2_130m.py"),
             ("configs", "hymba_1_5b.py")} <= walked
+
+
+def test_walks_the_encoder_decoder_and_the_family_trainer():
+    """The encoder-decoder's config and the modules it and the ssm and
+    hybrid trainers run through are walked."""
+    walked = {(p.parent.name, p.name) for p in FILES}
+    assert {("configs", "seamless_m4t_medium.py"),
+            ("models", "transformer.py"), ("models", "attention.py"),
+            ("kernels", "flash_attention.py"), ("serve", "engine.py"),
+            ("launch", "serve.py"), ("launch", "train.py"),
+            ("recurrent", "temporal.py"), ("train", "engine.py"),
+            ("analog", "convert.py")} <= walked
