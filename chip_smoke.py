@@ -244,7 +244,32 @@ Phases, each of which makes the script exit non-zero when it fails:
       cross inputs and at Sq 1000 over Sk 1500, #1 and #2 at its reads
       (the 256206x1025 unembed at B 2), against their plain versions; the
       smoke model, card against CPU, flash off and on; then the slice's
-      kernel times (t2's and s4's shapes; #8 against SDPA without a mask).
+      kernel times (t2's and s4's shapes; #8 against SDPA without a mask);
+  (s5) serve qwen1_5_110b at full width (d 8192, 64/8 heads of 128,
+      d_ff 49152, vocab 152064, QKV bias) cut to 8 of its 80 layers under
+      two-phase BM with the flash kernel: batch 2, 1000 prompt tokens, 16
+      new, twice from the same params and keys, the KV cache float and
+      ``kv_cache_quant``'s int8; launches per kind (#2 per read, #8 once
+      a layer a prefill), no plain-version call, the int8 leaves' dtype,
+      the int8 prefill cache bitwise ``quantize_kv`` of the float one, the
+      first decode step's next-token distribution over the int8 cache
+      within 0.05 of the float cache's, the cache's bytes, tok/s and the
+      prefill's and a decode step's profile; #8 at the prefill's own inputs and #1/#2 at
+      its reads against their plain versions; the smoke model with the
+      int8 cache card against CPU; then the slice's kernel times (s5's
+      reads and #8 against causal SDPA; t3's shapes);
+  (t3) training seamless_m4t_medium at full width (d 1024, vocab 256206)
+      with both stacks cut to 6 layers, batch 8, seq 128, the JAX
+      trainer's 64 zero stub frames a row: #1, #2, #6 at the encoder's
+      and the cross attentions' 512-row reads and #1, #2, #4 at the
+      unembed's 1016 rows against their plain versions; under FUSED_LM
+      and ITERATIVE_LM through ``lm_train`` as in t2 (the encoder's, the
+      adapter's and the cross attentions' reads counted inside the
+      replay); one FUSED_LM step of the smoke model card against CPU; the
+      CLI on the smoke model for 60 graphed steps at the LM convergence
+      benchmark's batch and seq, whose last 10 losses average below 0.85
+      of the first 10's (the full-width runs' 3 steps from random weights
+      are not held to a falling loss).
 
 The line before the card line is the kernels' JSON summary; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
@@ -3200,9 +3225,12 @@ def _n_seg(k):
 def lm_per_step(cfg, policy):
     """The analog launches one graphed LM step of any trained family makes,
     from the code's routes.  Each dense site of a block (7 per attention +
-    MLP layer, 2 per SSD block) and the untied unembed, under the rule of
-    ``policy`` that matches its path: a block's forward reads run twice
-    under remat (the forward and its recompute), the unembed's once; an
+    MLP layer, 2 per SSD block; an encoder-decoder's encoder layers the
+    same, its decoder blocks 4 more for the cross attention), an adapter
+    and the untied unembed, under the rule of ``policy`` that matches its
+    path: a block's forward reads (an encoder layer's too) run twice under
+    remat (the forward and its recompute), the adapter's and the unembed's
+    once; an
     SSD projection with no update management takes the temporal route, one
     read per position (``T2_POSITIONS``) forward and transposed and one
     count launch per position at ``row_offset = t * B``; a tile of at most
@@ -3215,16 +3243,25 @@ def lm_per_step(cfg, policy):
     from repro_torch.models import ssm
     pol = parse_policy(policy)
     d, hd = cfg.d_model, cfg.head_dim
+    kv = cfg.n_kv_heads * hd
+    attn = [("attn/q", cfg.n_heads * hd), ("attn/k", kv), ("attn/v", kv),
+            ("attn/o", d)]
     sites = []
     if cfg.family != "ssm":
-        kv = cfg.n_kv_heads * hd
-        sites += [("attn/q", cfg.n_heads * hd), ("attn/k", kv),
-                  ("attn/v", kv), ("attn/o", d),
-                  ("mlp/wi", cfg.d_ff), ("mlp/wg", cfg.d_ff), ("mlp/wo", d)]
+        sites += attn + [("mlp/wi", cfg.d_ff), ("mlp/wg", cfg.d_ff),
+                         ("mlp/wo", d)]
     if cfg.family in ("ssm", "hybrid"):
         d_in, h, _, n = ssm.dims(cfg)
         sites += [("ssm/in_proj", 2 * d_in + 2 * n + h), ("ssm/out_proj", d)]
-    sites = [(f"layers/{p}", r, cfg.n_layers) for p, r in sites]
+    enc = [(f"enc_layers/{p}", r, cfg.encoder_layers) for p, r in sites
+           if cfg.encoder_layers]
+    if cfg.encoder_layers:
+        # a decoder block's cross attention: q of the decoder's rows, k and
+        # v of the encoder's output
+        sites += [("cross/" + p.split("/")[1], r) for p, r in attn]
+    sites = [(f"layers/{p}", r, cfg.n_layers) for p, r in sites] + enc
+    if cfg.frontend != "none":
+        sites.append(("adapter", d, 1))
     if not cfg.tie_embeddings:
         sites.append(("unembed", cfg.vocab, 1))
     out = {}
@@ -3240,7 +3277,7 @@ def lm_per_step(cfg, policy):
                      and not rpu.update_management else 1)
         fused = (rpu.fuse_bwd_update and two_phase
                  and rows <= rpu.max_array_rows)
-        fwd = 2 if cfg.remat and path.startswith("layers") else 1
+        fwd = 2 if cfg.remat and path.startswith(("layers", "enc_")) else 1
         reads = positions * (fwd + (0 if fused else 1))
         out[kind] = out.get(kind, 0) + copies * reads * per_read
         upd = "bwd_update" if fused else "pulse_counts"
@@ -3349,12 +3386,14 @@ def _lm_tree_leaves(*trees):
 
 def _lm_state(policy, arch="deepseek_7b", layers=LM_LAYERS):
     """The full-width ``arch`` (the 4-layer deepseek_7b) under ``policy``:
-    ``(cfg, opt, params, opt_state)`` on the card, weights from seed 0."""
+    ``(cfg, opt, params, opt_state)`` on the card, weights from seed 0; an
+    encoder-decoder's encoder cut to ``layers`` as well."""
     import dataclasses as dc
     from repro_torch.launch import train as tl
     from repro_torch.train import lm
-    cfg = dc.replace(tl.lm_config(arch, smoke=False, analog_policy=policy),
-                     n_layers=layers)
+    cfg = tl.lm_config(arch, smoke=False, analog_policy=policy)
+    cfg = dc.replace(cfg, n_layers=layers, encoder_layers=(
+        layers if cfg.encoder_layers else 0))
     opt = lm.default_optimizer(cfg)
     params, state = lm.init_train_state(0, cfg, opt, device=DEV)
     return cfg, opt, params, state
@@ -3389,6 +3428,7 @@ def lm_train(label, policy, results, arch="deepseek_7b", layers=LM_LAYERS):
 
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.launch import train as tl
     from repro_torch.train import lm
     from repro_torch.utils import prng
 
@@ -3397,6 +3437,7 @@ def lm_train(label, policy, results, arch="deepseek_7b", layers=LM_LAYERS):
     cfg, opt, p_loop, s_loop = _lm_state(policy, arch, layers)
     step, _ = lm.make_train_step(cfg, opt)
     toks = _lm_batches(cfg, 0, LM_STEPS + LM_TIMED)
+    batch = lambda t: tl._build_batch(cfg, t, LM_S)  # noqa: E731
     launches, mem, secs = {}, {}, {}
     with _PlainCalls() as plain:
         torch.cuda.reset_peak_memory_stats()
@@ -3405,7 +3446,7 @@ def lm_train(label, policy, results, arch="deepseek_7b", layers=LM_LAYERS):
         loop_losses, loop_s = [], []
         for i in range(LM_STEPS):
             t0 = time.perf_counter()
-            _, _, m = step(p_loop, s_loop, {"tokens": toks[i].to(DEV)},
+            _, _, m = step(p_loop, s_loop, batch(toks[i].to(DEV)),
                            prng.fold_in(key_base, i))
             loop_losses.append(float(m["loss"]))    # synchronises
             loop_s.append(time.perf_counter() - t0)
@@ -3422,7 +3463,8 @@ def lm_train(label, policy, results, arch="deepseek_7b", layers=LM_LAYERS):
         base2 = torch.cuda.memory_allocated()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        _, _, m = multi(p_scan, s_scan, toks[:LM_STEPS], key_base, 0)
+        _, _, m = multi(p_scan, s_scan, batch(toks[:LM_STEPS]), key_base,
+                        0)
         torch.cuda.synchronize()
         secs["scan_first"] = time.perf_counter() - t0
         launches["scan"] = {k: v for k, v in ops.launch_counts().items()
@@ -3434,8 +3476,10 @@ def lm_train(label, policy, results, arch="deepseek_7b", layers=LM_LAYERS):
         b = _lm_tree_leaves(p_scan, s_scan)
         equal = len(a) == len(b) and all(torch.equal(x, y)
                                          for x, y in zip(a, b))
-        print(f"[{label}] {arch} d {cfg.d_model} x {layers} layers, batch "
-              f"{LM_B}, seq {LM_S}, {policy}: {LM_STEPS} loop steps vs "
+        enc = (f" and {cfg.encoder_layers} encoder layers"
+               if cfg.encoder_layers else "")
+        print(f"[{label}] {arch} d {cfg.d_model} x {layers} layers{enc}, "
+              f"batch {LM_B}, seq {LM_S}, {policy}: {LM_STEPS} loop steps vs "
               f"{LM_STEPS} graphed: params and optimizer state ({len(a)} "
               f"tensors) bitwise equal {equal}, losses loop {loop_losses} "
               f"graph {scan_losses}; launches loop {launches['python']}, "
@@ -3467,7 +3511,7 @@ def lm_train(label, policy, results, arch="deepseek_7b", layers=LM_LAYERS):
         # temporaries do not fit beside two states
         del a, b, p_loop, s_loop
         _free()
-        more = toks[LM_STEPS:LM_STEPS + LM_TIMED]
+        more = batch(toks[LM_STEPS:LM_STEPS + LM_TIMED])
         secs["scan"] = _timed(lambda: multi(p_scan, s_scan, more, key_base,
                                             LM_STEPS))
         # the loop's rate over its steps after the first (cuBLAS and the
@@ -3897,7 +3941,8 @@ MAMBA_T_PROMPT, MAMBA_T_GEN = 256, 16
 HYMBA_BATCH, HYMBA_PROMPT, HYMBA_GEN = 2, 1100, 16
 Q_SLOTS, Q_REQUESTS, Q_PROMPT, Q_GEN, Q_REPLAY = 4, 12, 1200, 16, 6
 # card vs CPU on the smoke models: tests/test_torch_families.py's
-# LOGIT_ATOL on logits and every cache leaf
+# LOGIT_ATOL on logits and every float cache leaf; an int8 cache's codes
+# equal
 FAMILY_ATOL = 1e-4
 # s3's dense pool: a request that fills its linear cache (prompt + new =
 # max_seq) and a later one that decodes on while the first one's slot is
@@ -4081,8 +4126,9 @@ def _dense_pool(label, cfg, params, akey):
 
 
 def _cache_err(label, a, b):
-    """The largest difference over the leaves of two cache trees (the
-    same leaves, shapes and dtypes; positions equal)."""
+    """The largest difference over the float leaves of two cache trees
+    (the same leaves, shapes and dtypes; positions and int8 codes
+    equal)."""
     import torch
     worst = 0.0
     check(set(a) == set(b), f"{label}: cache leaves {set(a)} vs {set(b)}")
@@ -4091,16 +4137,20 @@ def _cache_err(label, a, b):
         check(x.shape == y.shape and x.dtype == y.dtype, f"{label}: {k}")
         if k == "pos":
             check(torch.equal(x, y), f"{label}: positions differ")
+        elif x.dtype == torch.int8:
+            check(torch.equal(x, y), f"{label}: {k} codes differ in "
+                  f"{int((x != y).sum())} places")
         else:
             worst = max(worst, float((x.float() - y.float()).abs().max()))
     return worst
 
 
 def _smoke_vs_cpu(label, arch, policy, results, steps=4, prompt=40,
-                  flash=(False,)):
-    """The smoke model on the card against the CPU: prefill plus ``steps``
-    decode steps from the same weights, tokens and keys; logits and every
-    cache leaf within FAMILY_ATOL, greedy tokens equal."""
+                  flash=(False,), **over):
+    """The smoke model (``over`` replacing config fields) on the card
+    against the CPU: prefill plus ``steps`` decode steps from the same
+    weights, tokens and keys; logits and every float cache leaf within
+    FAMILY_ATOL, an int8 cache's codes equal, greedy tokens equal."""
     import numpy as np
     import torch
     from repro_torch.launch import serve as S
@@ -4109,7 +4159,7 @@ def _smoke_vs_cpu(label, arch, policy, results, steps=4, prompt=40,
     from repro_torch.utils import prng
 
     cfg0 = dataclasses.replace(S.build_cfg(arch, True, policy),
-                               act_dtype=torch.float32)
+                               act_dtype=torch.float32, **over)
     p_cpu = transformer.init_lm(0, cfg0, device="cpu")
     p_gpu = _to(p_cpu, DEV)
     rng = np.random.default_rng(6)
@@ -4144,14 +4194,15 @@ def _smoke_vs_cpu(label, arch, policy, results, steps=4, prompt=40,
         same = all(torch.equal(a.argmax(-1), b.argmax(-1))
                    for a, b in zip(runs["cpu"][0], runs[DEV][0]))
         what = f"{arch} smoke {policy}" + (f", flash {'on' if fl else 'off'}"
-                                            if len(flash) > 1 else "")
+                                            if len(flash) > 1 else "") + (
+            "".join(f", {k}={v}" for k, v in over.items()))
         print(f"[reference] {what}: prefill + {steps} decode steps, logits "
               f"max|diff| {err:.2e}, cache leaves {cerr:.2e} (tol "
-              f"{FAMILY_ATOL:g}; leaves {sorted(runs[DEV][1][0])}), greedy "
-              f"tokens equal: {same}")
+              f"{FAMILY_ATOL:g}; leaves {sorted(runs[DEV][1][0])}; int8 "
+              f"codes equal), greedy tokens equal: {same}")
         results.setdefault("reference_families", []).append(dict(
             arch=arch, policy=policy, flash=fl, logit_err=err,
-            cache_err=cerr, tokens_equal=same))
+            cache_err=cerr, tokens_equal=same, **over))
         check(err <= FAMILY_ATOL and cerr <= FAMILY_ATOL and same,
               f"{what}: the card disagrees with the CPU reference")
 
@@ -4476,14 +4527,14 @@ def serve_continuous(results):
     slice16_kernel_times(results)
 
 
-def _sdpa_backend(sdpa, q, k, v, mask):
+def _sdpa_backend(sdpa, q, k, v, mask, causal=False):
     """The backend SDPA's dispatcher picks for these inputs, and the device
     kernels five profiled calls ran (a single call can leave no record)."""
     import torch
     try:
         from torch.nn.attention import SDPBackend
         choice = SDPBackend(torch._fused_sdp_choice(q, k, v, mask, 0.0,
-                                                    False)).name
+                                                    causal)).name
     except Exception as e:             # a private API: name what failed
         choice = f"not read ({type(e).__name__})"
     prof = _profiled(lambda: [sdpa() for _ in range(5)])
@@ -4828,6 +4879,123 @@ def serve_seamless(results):
                   results, flash=(False, True))
 
 
+def _read_rows(rows_out, g, shape, r, c, b, tr, kinds):
+    """``kinds`` of #1 (``noisy_mvm``) and #2 (``managed_mvm``: NM's scale,
+    two-phase BM) at one read of an ``r x c`` tile (``tr``: transposed), B
+    ``b``, against their plain versions and ``torch.matmul``; #2's bound
+    counts the second read of the rows the first saturates."""
+    import torch
+    from repro_torch.kernels import managed_mvm as km
+    from repro_torch.kernels import noisy_mvm as kn
+    k, n_out = (r, c) if tr else (c, r)
+    w = torch.randn(r, c, generator=g, device=DEV) * k ** -0.5
+    x = torch.randn(b, k, generator=g, device=DEV)
+    nm_s = x.abs().amax(1, keepdim=True)
+    kw = dict(sigma=SIGMA, alpha=ALPHA, transpose=tr, n_seg=_n_seg(k))
+    mkw = dict(kw, two_phase=True, retry_scale=16.0)
+    byts = 4 * (w.numel() + x.numel() + b * n_out) + b
+    flops = 2.0 * b * k * n_out
+    lib = lambda: torch.matmul(x, w if tr else w.T)  # noqa: E731
+    if "noisy_mvm" in kinds:
+        _time_row(rows_out, "noisy_mvm", shape,
+                  lambda: kn.noisy_mvm(w, x, 1, **kw),
+                  lambda: kn.noisy_mvm_plain(w, x, 1, **kw), lib,
+                  byts, flops, 0.0, batch=b)
+    if "managed_mvm" in kinds:
+        again = int(km.managed_mvm_plain(w, x, nm_s, (1, 2), **dict(
+            mkw, two_phase=False))[1].sum())
+        _time_row(rows_out, "managed_mvm", shape,
+                  lambda: km.managed_mvm(w, x, nm_s, (1, 2), **mkw),
+                  lambda: km.managed_mvm_plain(w, x, nm_s, (1, 2), **mkw),
+                  lib, byts + 4 * b, flops * (1 + again / b), 0.0, batch=b)
+    del w, x
+    _free()
+
+
+def _fused_row(rows_out, g, shape, r, c, b):
+    """#6 (two-phase BM, BL 1) at an ``r x c`` tile and ``b`` rows against
+    its plain version and the three products it replaces."""
+    import torch
+    from repro_torch.kernels import bwd_update_mvm as kb
+    gains = torch.tensor([1.0, 1.0], device=DEV)
+    w = torch.randn(r, c, generator=g, device=DEV) * r ** -0.5
+    x = torch.randn(b, c, generator=g, device=DEV)
+    dd = torch.randn(b, r, generator=g, device=DEV)
+    nm_s = dd.abs().amax(1, keepdim=True)
+    sa = (torch.rand(b, c, device=DEV) < 0.5).float()
+    sb = (torch.rand(b, r, device=DEV) < 0.5).float()
+    bkw = dict(sigma=SIGMA, alpha=ALPHA, two_phase=True, bl=1)
+    again = int(kb.bwd_update_mvm_plain(
+        w, dd, x, nm_s, (1, 2), (3, 4, 0), gains,
+        **dict(bkw, two_phase=False))[1].sum())
+    _time_row(
+        rows_out, "bwd_update_mvm", f"{shape} B={b} BL=1",
+        lambda: kb.bwd_update_mvm(w, dd, x, nm_s, (1, 2), (3, 4, 0),
+                                  gains, **bkw),
+        lambda: kb.bwd_update_mvm_plain(w, dd, x, nm_s, (1, 2),
+                                        (3, 4, 0), gains, **bkw),
+        lambda: (torch.matmul(dd, w), torch.matmul(sb.T, sa),
+                 torch.matmul(sb.abs().T, sa.abs())),
+        4 * (w.numel() + dd.numel() + x.numel() + b + 2 + 2 * w.numel()),
+        2.0 * b * r * c * (1 + again / b), 4.0 * b * r * c, batch=b)
+    del w, x, dd, sa, sb
+    _free()
+
+
+def _count_row(rows_out, g, shape, r, c, slots, bl):
+    """#4 over ``slots`` vector pairs at BL ``bl`` for an ``r x c`` tile
+    against its plain version and two fp32 products."""
+    import torch
+    from repro_torch.core import update
+    from repro_torch.kernels import pulse_update as kp
+    gain = torch.tensor(0.7, device=DEV)
+    rws = update.signed_streams(5, torch.randn(slots, r, generator=g,
+                                               device=DEV), gain,
+                                bl).reshape(-1, r).contiguous()
+    cls = update.signed_streams(6, torch.randn(slots, c, generator=g,
+                                               device=DEV), gain,
+                                bl).reshape(-1, c).contiguous()
+    m = rws.shape[0]
+    _time_row(rows_out, "pulse_counts", f"{shape} {m} slots",
+              lambda: kp.pulse_counts(rws, cls),
+              lambda: kp.pulse_counts_plain(rws, cls),
+              lambda: (torch.matmul(rws.T, cls),
+                       torch.matmul(rws.abs().T, cls.abs())),
+              4 * (m * (r + c) + 2 * r * c), 0.0, 4.0 * m * r * c,
+              batch=slots)
+    del rws, cls
+    _free()
+
+
+def _flash_row(rows_out, g, shape, b, sq, sk, h, hkv, d, causal):
+    """#8 float32 against its plain version and SDPA (K/V heads repeated;
+    ``is_causal`` for a causal row, no mask otherwise), naming the kernel
+    SDPA ran; the bound counts the pairs the mask keeps."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(g, b, sq, sk, h, hkv, d, torch.float32)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+              .contiguous() for t in (k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal)
+    lib_err = float((sdpa().transpose(1, 2) - fa.flash_attention_plain(
+        q, k, v, causal=causal)).abs().max())
+    backend = _sdpa_backend(sdpa, qt, kt, vt, None, causal)
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    _time_row(rows_out, "flash_attention", shape,
+              lambda: fa.flash_attention(q, k, v, causal=causal),
+              lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+              sdpa, (2 * q.numel() + k.numel() + v.numel()) * 4,
+              4.0 * pairs * d * b * h, 0.0, batch=b)
+    rows_out[-1].update(library_kernels=backend, library_max_abs_err=lib_err)
+    print(f"[time] SDPA ({'causal' if causal else 'no mask'}) ran "
+          f"{backend}; max|SDPA - plain| {lib_err:.2e}")
+    del q, k, v, qt, kt, vt
+    _free()
+
+
 def slice17_kernel_times(results):
     """#1 and #2 at mamba2's in_proj and hymba's transposed unembed (1016
     rows), #6 at mamba2's in_proj and hymba's out_proj, #4 at hymba's
@@ -4837,118 +5005,323 @@ def slice17_kernel_times(results):
     seamless's prefill, bidirectional and cross (Sk 1000 and 1500),
     against SDPA without a mask."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.core import update
-    from repro_torch.kernels import bwd_update_mvm as kb
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import managed_mvm as km
-    from repro_torch.kernels import noisy_mvm as kn
-    from repro_torch.kernels import pulse_update as kp
-
     torch.backends.cuda.matmul.allow_tf32 = False
     rows_out = results.setdefault("times", [])
     g = torch.Generator(device=DEV).manual_seed(1717)
-
-    def reads(shape, r, c, b, tr, kinds):
-        k, n_out = (r, c) if tr else (c, r)
-        w = torch.randn(r, c, generator=g, device=DEV) * k ** -0.5
-        x = torch.randn(b, k, generator=g, device=DEV)
-        nm_s = x.abs().amax(1, keepdim=True)
-        kw = dict(sigma=SIGMA, alpha=ALPHA, transpose=tr, n_seg=_n_seg(k))
-        mkw = dict(kw, two_phase=True, retry_scale=16.0)
-        byts = 4 * (w.numel() + x.numel() + b * n_out) + b
-        flops = 2.0 * b * k * n_out
-        lib = lambda: torch.matmul(x, w if tr else w.T)  # noqa: E731
-        if "noisy_mvm" in kinds:
-            _time_row(rows_out, "noisy_mvm", shape,
-                      lambda: kn.noisy_mvm(w, x, 1, **kw),
-                      lambda: kn.noisy_mvm_plain(w, x, 1, **kw), lib,
-                      byts, flops, 0.0, batch=b)
-        if "managed_mvm" in kinds:
-            again = int(km.managed_mvm_plain(w, x, nm_s, (1, 2), **dict(
-                mkw, two_phase=False))[1].sum())
-            _time_row(rows_out, "managed_mvm", shape,
-                      lambda: km.managed_mvm(w, x, nm_s, (1, 2), **mkw),
-                      lambda: km.managed_mvm_plain(w, x, nm_s, (1, 2),
-                                                   **mkw),
-                      lib, byts + 4 * b, flops * (1 + again / b), 0.0,
-                      batch=b)
-        _free()
-
     both = ("noisy_mvm", "managed_mvm")
-    reads("t2 mamba2 in_proj 3352x769", 3352, 769, LM_ROWS, False, both)
-    reads("t2 hymba unembedT 32001x1601", 32001, 1601, LM_ROWS, True, both)
-    reads("t2 temporal hymba in_proj 6482x1601", 6482, 1601, LM_B, False,
-          ("noisy_mvm",))
-    reads("seamless unembed 256206x1025", 256206, 1025, SEAMLESS_BATCH,
-          False, ("managed_mvm",))
-    gains = torch.tensor([1.0, 1.0], device=DEV)
-    b = LM_ROWS
-    for shape, r, c in (("t2 mamba2 in_proj 3352x769", 3352, 769),
-                        ("t2 hymba out_proj 1600x3201", 1600, 3201)):
-        w = torch.randn(r, c, generator=g, device=DEV) * r ** -0.5
-        x = torch.randn(b, c, generator=g, device=DEV)
-        dd = torch.randn(b, r, generator=g, device=DEV)
-        nm_s = dd.abs().amax(1, keepdim=True)
-        sa = (torch.rand(b, c, device=DEV) < 0.5).float()
-        sb = (torch.rand(b, r, device=DEV) < 0.5).float()
-        bkw = dict(sigma=SIGMA, alpha=ALPHA, two_phase=True, bl=1)
-        again = int(kb.bwd_update_mvm_plain(
-            w, dd, x, nm_s, (1, 2), (3, 4, 0), gains,
-            **dict(bkw, two_phase=False))[1].sum())
-        _time_row(
-            rows_out, "bwd_update_mvm", f"{shape} B={b} BL=1",
-            lambda: kb.bwd_update_mvm(w, dd, x, nm_s, (1, 2), (3, 4, 0),
-                                      gains, **bkw),
-            lambda: kb.bwd_update_mvm_plain(w, dd, x, nm_s, (1, 2),
-                                            (3, 4, 0), gains, **bkw),
-            lambda: (torch.matmul(dd, w), torch.matmul(sb.T, sa),
-                     torch.matmul(sb.abs().T, sa.abs())),
-            4 * (w.numel() + dd.numel() + x.numel() + b + 2 + 2 * w.numel()),
-            2.0 * b * r * c * (1 + again / b), 4.0 * b * r * c, batch=b)
-        del w, x, dd, sa, sb
-        _free()
-    gain = torch.tensor(0.7, device=DEV)
-    for shape, r, c, slots, bl in (
-            ("t2 hymba in_proj 6482x1601", 6482, 1601, LM_ROWS, 1),
-            ("t2 temporal mamba2 in_proj 3352x769", 3352, 769, LM_B, 10)):
-        rws = update.signed_streams(5, torch.randn(slots, r, generator=g,
-                                                   device=DEV), gain,
-                                    bl).reshape(-1, r).contiguous()
-        cls = update.signed_streams(6, torch.randn(slots, c, generator=g,
-                                                   device=DEV), gain,
-                                    bl).reshape(-1, c).contiguous()
-        m = rws.shape[0]
-        _time_row(rows_out, "pulse_counts", f"{shape} {m} slots",
-                  lambda: kp.pulse_counts(rws, cls),
-                  lambda: kp.pulse_counts_plain(rws, cls),
-                  lambda: (torch.matmul(rws.T, cls),
-                           torch.matmul(rws.abs().T, cls.abs())),
-                  4 * (m * (r + c) + 2 * r * c), 0.0, 4.0 * m * r * c,
-                  batch=slots)
-        del rws, cls
-        _free()
+    _read_rows(rows_out, g, "t2 mamba2 in_proj 3352x769", 3352, 769,
+               LM_ROWS, False, both)
+    _read_rows(rows_out, g, "t2 hymba unembedT 32001x1601", 32001, 1601,
+               LM_ROWS, True, both)
+    _read_rows(rows_out, g, "t2 temporal hymba in_proj 6482x1601", 6482,
+               1601, LM_B, False, ("noisy_mvm",))
+    _read_rows(rows_out, g, "seamless unembed 256206x1025", 256206, 1025,
+               SEAMLESS_BATCH, False, ("managed_mvm",))
+    _fused_row(rows_out, g, "t2 mamba2 in_proj 3352x769", 3352, 769,
+               LM_ROWS)
+    _fused_row(rows_out, g, "t2 hymba out_proj 1600x3201", 1600, 3201,
+               LM_ROWS)
+    _count_row(rows_out, g, "t2 hymba in_proj 6482x1601", 6482, 1601,
+               LM_ROWS, 1)
+    _count_row(rows_out, g, "t2 temporal mamba2 in_proj 3352x769", 3352,
+               769, LM_B, 10)
     b, sq, h, d = SEAMLESS_BATCH, SEAMLESS_PROMPT, 16, 64
     for case, sk in (("bidirectional", sq), ("cross", sq),
                      ("cross Sk 1500", 1500)):
-        q, k, v = _qkv(g, b, sq, sk, h, h, d, torch.float32)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa
-        lib_err = float((sdpa().transpose(1, 2) - fa.flash_attention_plain(
-            q, k, v, causal=False)).abs().max())
-        backend = _sdpa_backend(sdpa, qt, kt, vt, None)
-        _time_row(rows_out, "flash_attention",
-                  f"seamless prefill {case} float32 Sq {sq} Sk {sk}",
-                  lambda: fa.flash_attention(q, k, v, causal=False),
-                  lambda: fa.flash_attention_plain(q, k, v, causal=False),
-                  sdpa, (2 * q.numel() + k.numel() + v.numel()) * 4,
-                  4.0 * sq * sk * d * b * h, 0.0, batch=b)
-        rows_out[-1].update(library_kernels=backend,
-                            library_max_abs_err=lib_err)
-        print(f"[time] SDPA without a mask ran {backend}; max|SDPA - plain| "
-              f"{lib_err:.2e}")
-        del q, k, v, qt, kt, vt
-        _free()
+        _flash_row(rows_out, g, f"seamless prefill {case} float32 Sq {sq} "
+                   f"Sk {sk}", b, sq, sk, h, h, d, False)
+
+
+# ---------------------------------------------------------------------------
+# (s5) qwen1_5_110b with its QKV bias and the int8 KV cache; (t3) training
+# the encoder-decoder
+# ---------------------------------------------------------------------------
+
+# full-width qwen1_5_110b (d 8192, 64/8 heads of 128, d_ff 49152, vocab
+# 152064) cut to 8 of its 80 layers: the 80 layers' f32 tiles pass 435 GB;
+# 8 layers, the unembed and the f32 embedding hold ~53.5 GB
+QWEN15_LAYERS = 8
+QWEN15_BATCH, QWEN15_PROMPT, QWEN15_GEN = 2, 1000, 16
+# tests/test_torch_kvquant.py's (and the JAX package's) bound on the int8
+# cache's first decode step against the float cache's, in probability
+S5_PROB_ATOL = 0.05
+PUBLISHED["qwen1_5_110b"] = dict(
+    n_layers=80, d_model=8192, n_heads=64, n_kv_heads=8, d_ff=49152,
+    vocab=152064, qkv_bias=True, rope_theta=1e6)
+# (name, rows, cols) of qwen1_5_110b's new read shapes, a bias column on each
+QWEN15_WI = ("wi", 49152, 8193)
+QWEN15_WO = ("wo", 8192, 49153)
+QWEN15_UNEMBED = ("unembed", 152064, 8193)
+# seamless_m4t_medium trains at full width with both stacks cut evenly
+# from 12 + 12 layers to 6 + 6: at 12 + 12 the phase took 249 s (a FUSED_LM
+# replay 3.38 s, 208 k graph nodes; the profile of one replay 31-44 s),
+# past the 200 s it may take beside the rest of the script.  An encoder
+# read has B x S_src = 8 x 64 rows (the JAX trainer's stub frames,
+# max(seq // 2, 8))
+T3_LAYERS = 6
+T3_ROWS_ENC = LM_B * max(LM_S // 2, 8)
+T3_RUNS = (("t3_seamless_fused", FUSED_LM),
+           ("t3_seamless_iterative", ITERATIVE_LM))
+T3_ENC_WI = ("enc wi", 4096, 1025)
+T3_CROSS_K = ("cross k", 1024, 1025)
+T3_UNEMBED = ("unembed", 256206, 1025)
+T3_CLI_STEPS = 60
+
+
+def _kv_bytes(cache):
+    return sum(cache[k].numel() * cache[k].element_size() for k in ("k", "v"))
+
+
+def serve_qwen15(results):
+    """(s5) qwen1_5_110b at full width, cut to QWEN15_LAYERS layers, under
+    two-phase BM with the flash prefill: batch 2, 1000 prompt tokens, 16
+    new, from the same params and keys with ``kv_cache_quant`` off and on;
+    then #2 and #8 at its shapes against their plain versions, and the
+    smoke model with the int8 cache on the card against the CPU."""
+    import torch
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention
+    from repro_torch.serve import engine
+
+    cfg, params, akey, meta = _load("serve_qwen15", "qwen1_5_110b",
+                                    POLICY_2P, n_layers=QWEN15_LAYERS,
+                                    use_flash_kernel=True)
+    n = cfg.n_layers
+    b, p, gen = QWEN15_BATCH, QWEN15_PROMPT, QWEN15_GEN
+    attn = params["layers"][0]["attn"]
+    check([tuple(attn[k].shape) for k in ("qb", "kb", "vb")]
+          == [(8192,), (1024,), (1024,)], "the QKV biases' shapes")
+    # #2 per read (7 a layer and the unembed, a pass), #8 once a layer a
+    # prefill (64/8 heads, causal, float32)
+    want = {"managed_read": _per_pass(cfg) * gen, "flash_attention": n}
+    cfgs = {q: dataclasses.replace(cfg, kv_cache_quant=q)
+            for q in (False, True)}
+    runs, caches = {}, {}
+    for quant, c in cfgs.items():
+        label = "serve_qwen15" + ("_int8" if quant else "")
+        torch.cuda.reset_peak_memory_stats()
+        runs[quant] = _generate(label, c, params, akey, b, p, gen, want=want)
+        _peak(label, runs[quant])
+    prompts = S.make_prompts(cfg, b, p, 0, DEV)
+    prefill_logits, step_logits = {}, {}
+    with torch.no_grad():
+        with _FlashCalls() as calls:
+            for quant, c in cfgs.items():
+                prefill_logits[quant], caches[quant] = engine.prefill(
+                    params, prompts, c, max_seq=p + gen, akey=akey)
+        # the first decode step over each cache, from the same token and
+        # key: the int8 one dequantizes its 1000 prefill entries and
+        # quantizes the new one
+        tok = torch.argmax(prefill_logits[False][:, -1], dim=-1)[:, None]
+        for quant, c in cfgs.items():
+            step_logits[quant], _ = engine.serve_step(
+                params, tok, caches[quant], c,
+                akey=engine.decode_step_key(akey, 0))
+    del params
+    _free()
+    f, q = caches[False], caches[True]
+    modes = {m: calls.modes.count(m) for m in set(calls.modes)}
+    qq, kk, vv, kw = calls.first["causal"]
+    print(f"[serve_qwen15] #8 launches in two prefills by mode {modes}, q "
+          f"{tuple(qq.shape)} k {tuple(kk.shape)} {qq.dtype}")
+    check(modes == {"causal": 2 * n} and qq.dtype == torch.float32
+          and tuple(qq.shape) == (b, p, 64, 128)
+          and tuple(kk.shape) == (b, p, 8, 128), f"#8 calls {modes}")
+    bitwise = all(torch.equal(q[k], attention.quantize_kv(f[k]))
+                  for k in ("k", "v"))
+    clipped = float(sum((q[k].abs() == 127).sum() for k in ("k", "v"))
+                    / (2 * q["k"].numel()))
+    cache_bytes = {"float": _kv_bytes(f), "int8": _kv_bytes(q)}
+    print(f"[serve_qwen15] prefill caches: k/v {f['k'].dtype} "
+          f"{tuple(f['k'].shape)} and {q['k'].dtype}; int8 bitwise "
+          f"quantize_kv of the float cache {bitwise}; codes at +-127 "
+          f"{clipped:.2e}; k/v bytes {cache_bytes}; first tokens "
+          f"{runs[False]['first_tokens']} and {runs[True]['first_tokens']};"
+          f" tok/s {runs[False]['tok_per_s']:.2f} and "
+          f"{runs[True]['tok_per_s']:.2f}")
+    check(q["k"].dtype == q["v"].dtype == torch.int8
+          and f["k"].dtype != torch.int8, "the int8 cache's dtypes")
+    check(bitwise and torch.equal(q["pos"], f["pos"]),
+          "the int8 prefill cache is not quantize_kv of the float one")
+    # JAX's test_kv_quant_decode_close_to_fp rule: the first decode
+    # step's next-token distribution within S5_PROB_ATOL of the float
+    # cache's
+    pq, pf = (torch.softmax(step_logits[qt][:, -1].float(), -1)
+              for qt in (True, False))
+    dist = float((pq - pf).abs().max())
+    step_err = float((step_logits[True] - step_logits[False]).abs().max())
+    same_next = torch.equal(pq.argmax(-1), pf.argmax(-1))
+    print(f"[serve_qwen15] first decode step, int8 against float cache: "
+          f"next-token distribution max|diff| {dist:.3e} (tol "
+          f"{S5_PROB_ATOL:g}; largest probability {float(pf.max()):.3e}), "
+          f"logits max|diff| {step_err:.3e}, greedy token equal "
+          f"{same_next}; prefill logits equal "
+          f"{torch.equal(prefill_logits[True], prefill_logits[False])}")
+    check(bool(torch.isfinite(step_logits[True]).all()),
+          "non-finite decode logits over the int8 cache")
+    check(dist <= S5_PROB_ATOL, "the int8 cache's first decode step "
+          "strays from the float cache's")
+    del prefill_logits, step_logits, pq, pf
+    check(_flash_check(results, f"qwen1.5 prefill causal {tuple(qq.shape)} "
+                       f"over {tuple(kk.shape)} float32", qq, kk, vv, kw),
+          "#8 disagrees with its plain version at qwen1.5's prefill")
+    del f, q, caches, calls, qq, kk, vv
+    _free()
+    ok = _lm_checks(results, "s5 qwen1.5", b * p, [QWEN15_WI], (), (), 3200)
+    ok &= _lm_checks(results, "s5 qwen1.5", b, [QWEN15_WO, QWEN15_UNEMBED],
+                     (), (), 3210)
+    check(ok, "a read disagrees with its plain version at qwen1.5's shapes")
+    results["serve_qwen15"] = dict(
+        policy=POLICY_2P, layers=n, **meta, **runs[False],
+        int8=runs[True], cache_bytes=cache_bytes, clipped_share=clipped,
+        flash_modes=modes, int8_step_prob_err=dist,
+        int8_step_logit_err=step_err, int8_step_token_equal=same_next)
+    # flash off: the smoke model's head dim 8 is below #8's smallest (16)
+    _smoke_vs_cpu("reference_qwen15", "qwen1_5_110b", POLICY_2P, results,
+                  kv_cache_quant=True)
+
+
+def slice19_kernel_times(results):
+    """s5's: #2 at qwen1_5_110b's wi (B 2000 and 2), wo (B 2000, 13
+    segments) and unembed (B 2), #8 at its prefill (B 2, S 1000, 64/8
+    heads of 128, causal, float32) against causal SDPA; t3's: #1 and #2 at
+    seamless's encoder wi (512 rows) and transposed unembed (1016 rows, 63
+    segments), #6 at a cross attention's k (512 rows), #4 at the unembed's
+    counts (1016 slots, BL 1)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows_out = results.setdefault("times", [])
+    g = torch.Generator(device=DEV).manual_seed(1919)
+    two = ("managed_mvm",)
+    b, p = QWEN15_BATCH, QWEN15_PROMPT
+    for (name, r, c), batches in ((QWEN15_WI, (b * p, b)),
+                                  (QWEN15_WO, (b * p,)),
+                                  (QWEN15_UNEMBED, (b,))):
+        for bb in batches:
+            _read_rows(rows_out, g, f"qwen1.5 {name} {r}x{c}", r, c, bb,
+                       False, two)
+    _flash_row(rows_out, g, f"qwen1.5 prefill causal float32 Sq {p} H 64/8 "
+               "D 128", b, p, p, 64, 8, 128, True)
+    both = ("noisy_mvm", "managed_mvm")
+    name, r, c = T3_ENC_WI
+    _read_rows(rows_out, g, f"t3 {name} {r}x{c}", r, c, T3_ROWS_ENC, False,
+               both)
+    name, r, c = T3_UNEMBED
+    _read_rows(rows_out, g, f"t3 {name}T {r}x{c}", r, c, LM_ROWS, True,
+               both)
+    name, r, c = T3_CROSS_K
+    _fused_row(rows_out, g, f"t3 {name} {r}x{c}", r, c, T3_ROWS_ENC)
+    name, r, c = T3_UNEMBED
+    _count_row(rows_out, g, f"t3 {name} {r}x{c}", r, c, LM_ROWS, 1)
+
+
+def t3_kernels_vs_plain(results):
+    """The new training shapes against the plain versions: #1 and #2 at
+    the encoder's wi and a cross attention's k (512 rows), forward and
+    transposed, #6 at the cross k (512 rows, BL 1); #1 and #2 at the
+    unembed (1016 rows; transposed, 63 segments) and #4 at its counts
+    (1016 slots, BL 1)."""
+    ok = _lm_checks(results, "t3 seamless", T3_ROWS_ENC,
+                    [T3_ENC_WI, T3_CROSS_K], [T3_CROSS_K], (), 3300)
+    ok &= _lm_checks(results, "t3 seamless", LM_ROWS, [T3_UNEMBED], (),
+                     [T3_UNEMBED], 3310)
+    check(ok, "a kernel disagrees with its plain version at the "
+          "encoder-decoder's training shapes")
+
+
+def t3_step_vs_cpu(results):
+    """One FUSED_LM training step of the smoke seamless on the card
+    against the CPU from the same weights, batch (seeded stub frames) and
+    key: the loss within 1e-5; every parameter leaf, tiles and AdamW's
+    digital leaves, as r2 holds a tile (at most 1e-3 of its entries beyond
+    1e-6, none beyond 3e-3: a read an ulp off can flip a pulse draw)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train as tl
+    from repro_torch.train import lm
+    from repro_torch.utils import prng
+
+    cfg = tl.lm_config("seamless_m4t_medium", smoke=True,
+                       analog_policy=FUSED_LM)
+    step, opt = lm.make_train_step(cfg)
+    rng = np.random.default_rng(19)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 32))),
+             "enc_embeds": torch.as_tensor(rng.normal(
+                 0, 0.5, (2, 16, cfg.d_model)), dtype=torch.float32)}
+    p_cpu = lm.init_train_state(0, cfg, opt, device="cpu")[0]
+    p_gpu = _to(p_cpu, DEV)
+    losses, leaves = {}, {}
+    for dev, p in (("cpu", p_cpu), (DEV, p_gpu)):
+        _, _, m = step(p, opt.init(p), {k: v.to(dev) for k, v in
+                                        batch.items()}, prng.key(8))
+        losses[dev] = float(m["loss"])
+        leaves[dev] = [t.detach().cpu() for t in _lm_tree_leaves(p)]
+    lerr = abs(losses["cpu"] - losses[DEV])
+    share, worst = 0.0, 0.0
+    for a, b in zip(leaves["cpu"], leaves[DEV]):
+        if a.is_floating_point():
+            diff = (a - b).abs()
+            share = max(share, float((diff > STEP_W_ATOL).float().mean()))
+            worst = max(worst, float(diff.max()))
+    ok = (lerr <= 1e-5 and share <= STEP_W_SHARE and worst <= STEP_W_MAX
+          and len(leaves["cpu"]) == len(leaves[DEV]))
+    print(f"[reference] seamless smoke FUSED_LM step, card vs CPU: loss "
+          f"{losses[DEV]:.6f} vs {losses['cpu']:.6f} (|diff| {lerr:.1e}, "
+          f"tol 1e-5); {len(leaves[DEV])} parameter leaves: largest share "
+          f"of entries > 1e-6 {share:.1e}, max |diff| {worst:.1e}")
+    results["t3_step_reference"] = dict(policy=FUSED_LM, loss_err=lerr,
+                                        share=share, max=worst, ok=ok)
+    check(ok, "the card's seamless training step disagrees with the CPU's")
+
+
+def t3_cli(results):
+    """The CLI entry ``launch.train.train("seamless_m4t_medium",
+    smoke=True, analog=True)`` on the card at the LM convergence
+    benchmark's policy, batch and seq (bare ``--analog``: NM, BM and UM at
+    BL 1 on the block projections, pulse-SGD; batch 4, seq 128) for
+    T3_CLI_STEPS graphed steps, not its 150: finite losses, the benchmark's rule that the last 10
+    steps' mean loss falls below 0.85 of the first 10's, the analog
+    kernels launched."""
+    import math
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tl
+    ops.reset_launch_counts()
+    r = tl.train("seamless_m4t_medium", smoke=True, steps=T3_CLI_STEPS,
+                 batch=4, seq=LM_S, analog=True, use_pallas=True,
+                 log_every=20, device=DEV)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    losses = r["losses"]
+    head, tail = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    print(f"[t3_cli] {T3_CLI_STEPS} steps: every 5th loss "
+          f"{[round(v, 4) for v in losses[::5]]}, the first 10's mean "
+          f"{head:.4f}, the last 10's {tail:.4f} (must fall below 0.85 of "
+          f"it); {r['steps_per_sec']:.1f} steps/s (engine {r['engine']}), "
+          f"launches {counts}")
+    check(len(losses) == T3_CLI_STEPS
+          and all(math.isfinite(v) for v in losses), "t3 CLI losses")
+    check(tail < 0.85 * head, "the seamless CLI run's loss does not fall")
+    check(counts.get("noisy_read") and counts.get("key_schedule"),
+          f"the seamless CLI run launched {counts}")
+    results["t3_cli"] = dict(losses=losses, launches=counts, head=head,
+                             tail=tail, steps_per_s=r["steps_per_sec"])
+
+
+def encdec_training(results):
+    """(t3) seamless_m4t_medium (6 + 6 layers) through ``lm_train`` under
+    FUSED_LM and ITERATIVE_LM: the kernels at its shapes, each run graphed
+    bitwise the loop with its launches per replay against
+    :func:`lm_per_step` (the encoder's, the adapter's and the cross
+    attentions' reads inside the replay), a smoke step card vs CPU and the
+    CLI's falling loss."""
+    t3_kernels_vs_plain(results)
+    for label, policy in T3_RUNS:
+        t0 = time.perf_counter()
+        lm_train(label, policy, results, arch="seamless_m4t_medium",
+                 layers=T3_LAYERS)
+        results[f"lm_train_{label}"]["phase_s"] = time.perf_counter() - t0
+        print(f"[{label}] {time.perf_counter() - t0:.1f}s", flush=True)
+    t3_step_vs_cpu(results)
+    t3_cli(results)
 
 
 def summary_line(results):
@@ -5048,6 +5421,31 @@ def summary_line(results):
                                    "bound_ms", "bound_by", "library_ms")}
                 for r in results["times"] if r["kernel"] == kname
                 and r["shape"].startswith("seamless")]
+        if meta["kind"] in ("managed_read", "flash_attention"):
+            # and in s5's qwen1_5_110b runs (a counted greedy_generate with
+            # the float and the int8 cache)
+            s5 = results["serve_qwen15"]
+            kernels[-1]["launches_s5"] = {
+                "float": s5["launches"][meta["kind"]],
+                "int8": s5["int8"]["launches"][meta["kind"]]}
+            kernels[-1]["s5_time"] = [
+                {k: r[k] for k in ("shape", "batch", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for r in results["times"] if r["kernel"] == kname
+                and r["shape"].startswith("qwen1.5")]
+        if meta["kind"] in ("noisy_read", "managed_read", "pulse_counts",
+                            "bwd_update", "key_schedule"):
+            # and in t3's seamless runs (warm-up step and 3 replays), with
+            # times at its shapes
+            kernels[-1]["launches_t3"] = {
+                label: results[f"lm_train_{label}"]["launches"][meta["kind"]]
+                for label, _ in T3_RUNS
+                if results[f"lm_train_{label}"]["launches"].get(meta["kind"])}
+            kernels[-1]["t3_time"] = [
+                {k: r[k] for k in ("shape", "batch", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for r in results["times"] if r["kernel"] == kname
+                and r["shape"].startswith("t3 ")]
         if meta["kind"] in ("noisy_read", "managed_read", "pulse_counts"):
             # and in g4's chunked 20-step epochs (warm-up step included)
             kernels[-1]["launches_stream"] = {
@@ -5123,9 +5521,18 @@ PHASES = [
      "#8 bidirectional and cross; the slice's kernel times",
      lambda results: (serve_seamless(results),
                       slice17_kernel_times(results))),
+    # s5 times s5's and t3's kernels before t2's and t3's profiles
+    ("s5", "qwen1_5_110b serve at full width (8 of 80 layers) with its QKV "
+     "bias, the KV cache in float and in int8; the slice's kernel times",
+     lambda results: (serve_qwen15(results),
+                      slice19_kernel_times(results))),
     ("t2", "training the ssm and hybrid families: mamba2_130m and "
      "hymba_1_5b graphed vs the loop, single-shot and temporal routes",
      family_training),
+    ("t3", "training the encoder-decoder seamless_m4t_medium at full "
+     "width (6 + 6 layers): graphed vs the loop under FUSED_LM and "
+     "ITERATIVE_LM; the smoke model card vs CPU and through the CLI",
+     encdec_training),
     # last: after its profile of a 28k-node replay, the profiler kept no
     # device record of most of e's kernels (49 of 73 rows, where the
     # parent's runs lost 0-2)

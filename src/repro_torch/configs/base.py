@@ -3,13 +3,15 @@ families).
 
 Each ``configs/<id>.py`` exports ``CONFIG`` (the published numbers) and
 ``smoke_config()`` (a reduced same-family config for CPU tests); the
-``registry`` resolves ``--arch`` names.  The dense decoder, the Mamba-2
-SSD stack (``ssm``) and Hymba's parallel attention + SSD heads
-(``hybrid``) are ported, with sliding-window attention (``swa_window``)
-and tied embeddings, and the encoder-decoder (``audio``: ``encoder_layers``
-bidirectional blocks over stub frames through an ``adapter``, the decoder's
-blocks with cross attention).  MoE and VLM stacks, QKV bias and the int8
-KV cache are not part of this package yet.
+``registry`` resolves ``--arch`` names.  The dense decoder (with QKV bias,
+``qkv_bias``: qwen1.5), the Mamba-2 SSD stack (``ssm``) and Hymba's
+parallel attention + SSD heads (``hybrid``) are ported, with
+sliding-window attention (``swa_window``) and tied embeddings, and the
+encoder-decoder (``audio``: ``encoder_layers`` bidirectional blocks over
+stub frames through an ``adapter``, the decoder's blocks with cross
+attention).  ``kv_cache_quant`` keeps the self-attention KV cache in int8
+(``attention.quantize_kv``).  MoE and VLM stacks are not part of this
+package yet.
 
 Training: ``remat`` recomputes each layer block in the backward
 (``torch.utils.checkpoint``; ``remat_policy='full'``).  The JAX package's
@@ -58,6 +60,7 @@ class ModelConfig:
     d_ff: int
     vocab: int
     d_head: Optional[int] = None          # default d_model // n_heads
+    qkv_bias: bool = False                # qwen1.5: a bias on q, k and v
     qk_norm: bool = False                 # qwen3: RMSNorm of q and k heads
     swa_window: int = 0                   # sliding-window attention (hymba)
     rope_theta: float = 1e4
@@ -69,6 +72,7 @@ class ModelConfig:
     # numerics
     param_dtype: torch.dtype = torch.bfloat16
     act_dtype: torch.dtype = torch.bfloat16
+    kv_cache_quant: bool = False          # int8 self-attention KV cache
     use_flash_kernel: bool = False        # prefill attention through the
                                           # flash-attention kernel instead
                                           # of the chunked fallback

@@ -1,9 +1,9 @@
 """--arch registry: resolves architecture ids to configs.
 
 Each ``configs/<id>.py`` exports ``CONFIG`` (published numbers) and
-``smoke_config()``.  The dense models deepseek_7b, qwen3_14b and
-stablelm_3b, the ssm model mamba2_130m, the hybrid hymba_1_5b and the
-encoder-decoder seamless_m4t_medium are ported so far.
+``smoke_config()``.  The dense models deepseek_7b, qwen1_5_110b,
+qwen3_14b and stablelm_3b, the ssm model mamba2_130m, the hybrid
+hymba_1_5b and the encoder-decoder seamless_m4t_medium are ported so far.
 """
 
 from __future__ import annotations
@@ -12,11 +12,13 @@ import dataclasses
 import importlib
 from typing import List
 
-ARCH_IDS: List[str] = ["deepseek_7b", "stablelm_3b", "qwen3_14b",
-                       "mamba2_130m", "seamless_m4t_medium", "hymba_1_5b"]
+ARCH_IDS: List[str] = ["deepseek_7b", "qwen1_5_110b", "stablelm_3b",
+                       "qwen3_14b", "mamba2_130m", "seamless_m4t_medium",
+                       "hymba_1_5b"]
 
-_ALIASES = {"deepseek-7b": "deepseek_7b", "stablelm-3b": "stablelm_3b",
-            "qwen3-14b": "qwen3_14b", "mamba2-130m": "mamba2_130m",
+_ALIASES = {"deepseek-7b": "deepseek_7b", "qwen1.5-110b": "qwen1_5_110b",
+            "stablelm-3b": "stablelm_3b", "qwen3-14b": "qwen3_14b",
+            "mamba2-130m": "mamba2_130m",
             "seamless-m4t-medium": "seamless_m4t_medium",
             "hymba-1.5b": "hymba_1_5b"}
 

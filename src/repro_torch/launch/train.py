@@ -6,8 +6,10 @@
       --analog-policy "*attn*=managed,*mlp*=rpu_baseline"
   python -m repro_torch.launch.train --arch lstm --analog --steps 5
 
-LM archs (the dense ``deepseek_7b``, ``stablelm_3b`` and ``qwen3_14b``, the
-ssm ``mamba2_130m`` and the hybrid ``hymba_1_5b``): the deterministic
+LM archs (the dense ``deepseek_7b``, ``qwen1_5_110b``, ``stablelm_3b`` and
+``qwen3_14b``, the ssm ``mamba2_130m``, the hybrid ``hymba_1_5b`` and the
+encoder-decoder ``seamless_m4t_medium``, whose encoder reads the JAX
+trainer's zero stub frames each step): the deterministic
 token pipeline (``data/tokens.py``), digital AdamW or per-layer analog
 training (``--analog-policy`` rules, or bare ``--analog``: the uniform
 NM+BM+UM(BL=1) config on the block projections, stepped by pure
@@ -67,8 +69,8 @@ from repro_torch.train import engine as eng
 from repro_torch.utils import prng
 
 SEQ_ARCHS = ("lstm", "gru")
-#: The LM families the driver trains (the encoder-decoder serves only).
-TRAIN_FAMILIES = ("dense", "ssm", "hybrid")
+#: The LM families ``lm_config`` trains.
+TRAIN_FAMILIES = ("dense", "ssm", "hybrid", "audio")
 
 
 def build(kind: str, *, batch: int, seq: int, smoke: bool, analog: bool,
@@ -188,10 +190,16 @@ def train_sequence(kind: str, *, steps: int, batch: int, seq: int,
 
 
 def _build_batch(cfg, toks, seq):
-    """The train-step batch dict of ``toks`` (B, S).  No trained family has
-    a frontend or encoder stream; the engine's chunks take the tokens
-    (chunk, B, S) alone."""
-    return {"tokens": toks}
+    """The train-step batch dict of ``toks``: (B, S) for a step, (chunk, B,
+    S) for the engine's chunk.  An encoder-decoder's stub frames
+    ``enc_embeds`` are the JAX trainer's zeros (``*lead, max(seq // 2, 8),
+    d_model``) in the act dtype, after the same leading axes."""
+    batch = {"tokens": toks}
+    if cfg.family == "audio":
+        batch["enc_embeds"] = torch.zeros(
+            (*toks.shape[:-1], max(seq // 2, 8), cfg.d_model),
+            dtype=cfg.act_dtype, device=toks.device)
+    return batch
 
 
 def _parse_tile_mesh(tile_mesh: Optional[str]):
@@ -278,12 +286,10 @@ def lm_config(arch: str, *, smoke: bool, analog: bool = False,
     except KeyError:
         cfg = None
     if cfg is None or cfg.family not in TRAIN_FAMILIES:
-        # the encoder-decoder serves (launch/serve.py) but does not train
-        # yet: its encoder's backward and the cross attention in the graph
         raise NotImplementedError(
             f"--arch {arch!r}: the port trains the LMs {trained} and the "
-            f"recurrent cells {SEQ_ARCHS}; the MoE, VLM and "
-            "encoder-decoder families wait (ROADMAP Queue 1, item 6)")
+            f"recurrent cells {SEQ_ARCHS}; the MoE and VLM families wait "
+            "(ROADMAP Queue 1, item 6)")
     if fuse_bwd_update and not use_pallas and not analog_policy:
         raise ValueError("--fuse-bwd-update requires --use-pallas (the "
                          "fused backward+update cycle is a kernel launch)")
@@ -387,7 +393,8 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
                 like = stack_layers((params, opt_state))
                 del params, opt_state
                 restored, _ = store.restore(ckpt_dir, latest, like)
-                params, opt_state = unstack_layers(restored, cfg.n_layers)
+                params, opt_state = unstack_layers(
+                    restored, cfg.n_layers, cfg.encoder_layers)
                 start = latest
                 say(f"[train] restored step {latest}")
         if analog and verbose and not printed_policy:
@@ -417,7 +424,8 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
                 toks = torch.from_numpy(np.stack(
                     [pipeline.batch_at(i) for i in range(step, step + chunk)]))
                 params, opt_state, metrics = step_fn(
-                    params, opt_state, toks, key_base, step)
+                    params, opt_state, _build_batch(cfg, toks, seq),
+                    key_base, step)
                 chunk_losses = metrics["loss"].tolist()
             else:
                 chunk = 1
@@ -488,7 +496,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     help="an LM of the registry (deepseek_7b, "
-                         "stablelm_3b, qwen3_14b, mamba2_130m, hymba_1_5b) "
+                         "qwen1_5_110b, stablelm_3b, qwen3_14b, "
+                         "mamba2_130m, hymba_1_5b, seamless_m4t_medium) "
                          "or a recurrent cell "
                          f"({', '.join(SEQ_ARCHS)})")
     ap.add_argument("--steps", type=int, default=100,

@@ -1,10 +1,12 @@
-"""Grouped-query attention with optional qk RMS-norm (qwen3) and a sliding
-window (hymba): online-softmax prefill and single-token decode over a KV
-cache, a ring buffer of ``swa_window`` slots when the cache holds exactly
-that many.  Bidirectional (``causal=False``: seamless's encoder) and cross
-attention (``x_kv``: the decoder over the encoder's output, no RoPE; its
-decode reads the static cross K/V and writes nothing) as in the JAX
-package.
+"""Grouped-query attention with optional QKV bias (qwen1.5), qk RMS-norm
+(qwen3) and a sliding window (hymba): online-softmax prefill and
+single-token decode over a KV cache, a ring buffer of ``swa_window`` slots
+when the cache holds exactly that many, int8 under ``kv_cache_quant``
+(:func:`quantize_kv`: ``round(16 x)`` clipped to +-127, dequantized to
+q's dtype before the scores).  Bidirectional (``causal=False``:
+seamless's encoder) and cross attention (``x_kv``: the decoder over the
+encoder's output, no RoPE; its decode reads the static cross K/V and
+writes nothing) as in the JAX package.
 
 The projections go through ``layers.dense_apply``, so an analog policy
 turns them into managed array reads; their read keys are
@@ -40,22 +42,36 @@ def init(gen: torch.Generator, cfg: ModelConfig, device, *,
                                           device)
     p = {"q": mk(d, h * hd), "k": mk(d, hkv * hd), "v": mk(d, hkv * hd),
          "o": mk(h * hd, d)}
+    if cfg.qkv_bias:
+        p.update(bias_init(cfg, device))
     if cfg.qk_norm:
         p["q_norm"] = L.rmsnorm_init(hd, cfg.param_dtype, device)
         p["k_norm"] = L.rmsnorm_init(hd, cfg.param_dtype, device)
     return p
 
 
+def bias_init(cfg: ModelConfig, device) -> Dict[str, Tensor]:
+    """The zero QKV biases ``qb``, ``kb``, ``vb`` (they draw no key)."""
+    hq, hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    return {n: torch.zeros(w, dtype=cfg.param_dtype, device=device)
+            for n, w in (("qb", hq), ("kb", hkv), ("vb", hkv))}
+
+
+def _dense(p, name: str, x: Tensor, cfg: ModelConfig, akey, i: int):
+    """The projection ``name`` under ``fold_in(akey, i)``, plus its QKV
+    bias in the read's dtype."""
+    k = None if akey is None else prng.fold_in(akey, i)
+    y = L.dense_apply(p[name], x, key=k)
+    if cfg.qkv_bias and name + "b" in p:
+        y = y + p[name + "b"].to(y.dtype)
+    return y
+
+
 def _project_qkv(p, x_q: Tensor, x_kv: Tensor, cfg: ModelConfig, akey=None):
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-    def dense(name, xx, i):
-        k = None if akey is None else prng.fold_in(akey, i)
-        return L.dense_apply(p[name], xx, key=k)
-
-    q = dense("q", x_q, 0).reshape(*x_q.shape[:-1], h, hd)
-    k = dense("k", x_kv, 1).reshape(*x_kv.shape[:-1], hkv, hd)
-    v = dense("v", x_kv, 2).reshape(*x_kv.shape[:-1], hkv, hd)
+    q = _dense(p, "q", x_q, cfg, akey, 0).reshape(*x_q.shape[:-1], h, hd)
+    k = _dense(p, "k", x_kv, cfg, akey, 1).reshape(*x_kv.shape[:-1], hkv, hd)
+    v = _dense(p, "v", x_kv, cfg, akey, 2).reshape(*x_kv.shape[:-1], hkv, hd)
     if cfg.qk_norm:
         q = L.rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
         k = L.rmsnorm_apply(p["k_norm"], k, cfg.norm_eps)
@@ -153,11 +169,32 @@ def forward(p, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
     return y
 
 
+#: int8 KV cache: symmetric, +-8 in steps of 1/16 (the JAX package's
+#: ``_KV_Q_SCALE``)
+KV_Q_SCALE = 16.0
+
+
+def quantize_kv(x: Tensor) -> Tensor:
+    """``round(16 x)`` clipped to +-127, int8; ``torch.round`` rounds half
+    to even, as ``jnp.round`` does."""
+    return torch.clamp(torch.round(x.float() * KV_Q_SCALE), -127, 127).to(
+        torch.int8)
+
+
+def dequantize_kv(q: Tensor, dtype) -> Tensor:
+    """An int8 cache's values in ``dtype``; any other cache as it is."""
+    if q.dtype == torch.int8:
+        return (q.float() / KV_Q_SCALE).to(dtype)
+    return q
+
+
 def _scatter_time(cache: Tensor, new: Tensor, slot: Tensor) -> Tensor:
     """cache (B,S,H,D) <- new (B,1,H,D) at per-batch time index ``slot``
-    (a new tensor).  A one-hot write, as in the JAX package: a row whose
-    slot lies past the cache (a free pool row decoding on) writes
-    nothing."""
+    (a new tensor), quantized into an int8 cache.  A one-hot write, as in
+    the JAX package: a row whose slot lies past the cache (a free pool row
+    decoding on) writes nothing."""
+    if cache.dtype == torch.int8:
+        new = quantize_kv(new)
     oh = torch.arange(cache.shape[1], device=cache.device)[None, :] \
         == slot[:, None]                                        # (B,S)
     return torch.where(oh[:, :, None, None], new.to(cache.dtype), cache)
@@ -174,12 +211,12 @@ def decode(p, x_t: Tensor, cache_k: Tensor, cache_v: Tensor, pos: Tensor,
     """Single-token decode.  x_t: (B, 1, d); cache_k/v: (B, S_cache, Hkv,
     hd), written at ``pos`` (a ring: at ``pos % swa_window``); with
     ``cross`` the encoder's static K/V, every slot valid, nothing written
-    and no RoPE.  Returns (y, new_k, new_v)."""
+    and no RoPE.  An int8 cache is dequantized to q's dtype.  Returns (y,
+    new_k, new_v)."""
     if cross:
         # only q is read: the JAX package projects k and v too and its jit
         # drops them, unused
-        k = None if akey is None else prng.fold_in(akey, 0)
-        q = L.dense_apply(p["q"], x_t, key=k).reshape(
+        q = _dense(p, "q", x_t, cfg, akey, 0).reshape(
             *x_t.shape[:-1], cfg.n_heads, cfg.head_dim)
         if cfg.qk_norm:
             q = L.rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
@@ -193,8 +230,8 @@ def decode(p, x_t: Tensor, cache_k: Tensor, cache_v: Tensor, pos: Tensor,
         cache_v = _scatter_time(cache_v, v_new, slot)
 
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    kk = _repeat_kv(cache_k, n_rep)
-    vv = _repeat_kv(cache_v, n_rep)
+    kk = _repeat_kv(dequantize_kv(cache_k, q.dtype), n_rep)
+    vv = _repeat_kv(dequantize_kv(cache_v, q.dtype), n_rep)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) \
         * (cfg.head_dim ** -0.5)
     if not cross:

@@ -68,9 +68,10 @@ def _jax_draws(seed: int, cfg: ModelConfig, device) -> Params:
     """The JAX package's ``init_lm`` weights for ``key(seed)``: its key
     tree (``split(key, 6)``; per layer ``split(split(k1, L)[l], 8)``: q, k,
     v, o from ``split(., 4)`` of the first (the cross attention's of the
-    second), the SSD block's from ``split(., 6)`` of the third, wi, wg, wo
-    from ``split(., 3)`` of the fourth; the encoder's layers the same from
-    ``split(k2, L_enc)``, the adapter from k3), each
+    second; QKV biases zeros, from no key), the SSD block's from
+    ``split(., 6)`` of the third, wi, wg, wo from ``split(., 3)`` of the
+    fourth; the encoder's layers the same from ``split(k2, L_enc)``, the
+    adapter from k3), each
     weight ``scale * truncated_normal(-2, 2)`` drawn on the host
     (``prng.truncated_normal``, within 3 ulp of JAX's)."""
     def tn(k, shape, scale):
@@ -92,6 +93,8 @@ def _jax_draws(seed: int, cfg: ModelConfig, device) -> Params:
         ka = prng.split(k, 4)
         a = {"q": dense(ka[0], d, h * hd), "k": dense(ka[1], d, hkv * hd),
              "v": dense(ka[2], d, hkv * hd), "o": dense(ka[3], h * hd, d)}
+        if cfg.qkv_bias:
+            a.update(attention.bias_init(cfg, device))
         if cfg.qk_norm:
             a["q_norm"], a["k_norm"] = norm(hd), norm(hd)
         return a
@@ -302,13 +305,16 @@ def _ring_cache_from_full(k: Tensor, window: int) -> Tensor:
 def block_prefill(p, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
                   cache_len: int, enc_out=None, akey=None):
     """Full-sequence block that also emits its decode cache (with
-    ``enc_out``, the static cross K/V ``cross_k``/``cross_v``)."""
+    ``enc_out``, the static cross K/V ``cross_k``/``cross_v``, which stay
+    in the reads' dtype under ``kv_cache_quant``)."""
     cache: Dict[str, Tensor] = {}
     if cfg.family != "ssm":
         h = L.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
         att, (kk, vv) = attention.forward(p["attn"], h, cfg,
                                           positions=positions, akey=akey,
                                           return_kv=True)
+        if cfg.kv_cache_quant:
+            kk, vv = attention.quantize_kv(kk), attention.quantize_kv(vv)
         if cfg.swa_window > 0:
             w = min(cfg.swa_window, cache_len)
             cache["k"] = _ring_cache_from_full(kk, w)

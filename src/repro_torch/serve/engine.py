@@ -9,11 +9,12 @@ an untied unembed ``fold_in(akey, 203)``, decode step ``i`` from
 Caches are dicts of tensors stacked over layers (leading L axis) plus the
 per-row position ``pos`` (int32, as in the JAX package): ``k``/``v`` for
 attention (a ring of ``swa_window`` slots when the window is shorter than
-``max_seq``; no KV cache for the ssm family), ``ssm_conv`` and
-``ssm_state`` for the SSD blocks, and an encoder-decoder's static cross
-attention memory ``cross_k``/``cross_v`` (B, S_src, Hkv, hd), projected
-once by the prefill from the encoder's output (``enc_embeds``: the stub
-frames) and read, never written, by every decode step.
+``max_seq``; int8 codes under ``kv_cache_quant``; no KV cache for the ssm
+family), ``ssm_conv`` and ``ssm_state`` for the SSD blocks, and an
+encoder-decoder's static cross attention memory ``cross_k``/``cross_v``
+(B, S_src, Hkv, hd), projected once by the prefill from the encoder's
+output (``enc_embeds``: the stub frames) and read, never written, by every
+decode step.
 """
 
 from __future__ import annotations
@@ -63,8 +64,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, src_len: int = 0,
     n, cl = cfg.n_layers, cache_len_for(cfg, max_seq)
     if cfg.family != "ssm":
         shape = (n, batch, cl, cfg.n_kv_heads, cfg.head_dim)
-        c["k"] = torch.zeros(shape, dtype=cfg.act_dtype, device=device)
-        c["v"] = torch.zeros(shape, dtype=cfg.act_dtype, device=device)
+        kv_dt = torch.int8 if cfg.kv_cache_quant else cfg.act_dtype
+        c["k"] = torch.zeros(shape, dtype=kv_dt, device=device)
+        c["v"] = torch.zeros(shape, dtype=kv_dt, device=device)
     if cfg.family in ("ssm", "hybrid"):
         st = S.init_state(cfg, batch, device=device)
         c["ssm_conv"] = st["conv"][None].repeat(n, 1, 1, 1)

@@ -50,8 +50,10 @@ The LM trainer's :func:`scan_steps` (``scan_steps`` :362) runs a chunk of
 key schedule (root ``fold_in(base, step)``), the loss, its gradients (each
 block recomputed under remat), the optimizer's in-place update of params
 and state (AdamW's count included) and the counter's ``add_``; each
-replay's tokens come from a static device buffer its caller fills, and the
-chunk's losses are read back once.
+replay's batch (the tokens, and an encoder-decoder's stub frames
+``enc_embeds``, whose encoder reads, adapter read and cross attention reads
+the step records with their keys) comes from static device buffers its
+caller fills, and the chunk's losses are read back once.
 The data-parallel split is not ported.
 """
 
@@ -452,16 +454,21 @@ def make_seq_eval_fn(cfg, *, batch: int = 256) -> Callable:
 # ---------------------------------------------------------------------------
 
 class _LMStep(_Graphed):
-    def __init__(self, step, tokens: torch.Tensor, device):
+    def __init__(self, step, batch: Dict[str, torch.Tensor], device):
         super().__init__(device)
         self.step = step
-        self.tokens = torch.zeros(tuple(tokens.shape), dtype=tokens.dtype,
-                                  device=self.device)
+        # one static buffer per leaf of a step's batch dict
+        self.batch = {k: torch.zeros(tuple(v.shape), dtype=v.dtype,
+                                     device=self.device)
+                      for k, v in batch.items()}
+
+    def fill(self, batches: Dict[str, torch.Tensor], i: int) -> None:
+        for k, buf in self.batch.items():
+            buf.copy_(batches[k][i])
 
     def body(self, state, root):
         params, opt_state = state
-        _, _, metrics = self.step(params, opt_state,
-                                  {"tokens": self.tokens}, root)
+        _, _, metrics = self.step(params, opt_state, self.batch, root)
         self.ctr.add_(1)
         return metrics["loss"]
 
@@ -471,36 +478,43 @@ def scan_steps(step_fn: Callable) -> Callable:
 
     ``step_fn(params, opt_state, batch, key) -> (params, opt_state,
     metrics)`` (in place) becomes ``multi(params, opt_state, batches, base,
-    step0) -> (params, opt_state, metrics)``: ``batches`` (chunk, B, S)
-    tokens (host or device), step ``i`` of the chunk on ``batches[i]``
-    under ``fold_in(base, step0 + i)``, the JAX package's
-    ``fold_in_keys(key_base, arange(step0, step0 + chunk))``.  The first
-    call captures the step (again whenever the state's tensors or the
-    batch's shape change); each step is then one graph replay on a card
-    (run as it is on the CPU).  ``metrics["loss"]`` is the chunk's losses,
-    one host read-back per call.  ``multi.program`` is the captured step.
+    step0) -> (params, opt_state, metrics)``: ``batches`` a batch dict
+    whose every leaf leads with the chunk axis (``tokens`` (chunk, B, S);
+    an encoder-decoder's ``enc_embeds`` (chunk, B, S_src, d) beside them;
+    host or device), step ``i`` of the chunk on the batch of
+    ``batches[.][i]`` under ``fold_in(base, step0 + i)``, the JAX
+    package's ``fold_in_keys(key_base, arange(step0, step0 + chunk))``.
+    The first call captures the step (again whenever the state's tensors
+    or the batch's leaves, shapes or dtypes change); each step is then one
+    graph replay on a card (run as it is on the CPU), its batch copied
+    into the capture's static buffers.  ``metrics["loss"]`` is the chunk's
+    losses, one host read-back per call.  ``multi.program`` is the
+    captured step.
     """
     def multi(params, opt_state, batches, base: prng.Key, step0: int):
-        batches = torch.as_tensor(batches)
+        batches = {k: torch.as_tensor(v) for k, v in batches.items()}
+        chunk = batches["tokens"].shape[0]
         dev = next(n.w.device if isinstance(n, AnalogState) else n.device
                    for n in _nodes(params))
         sig = (tuple((n.w.data_ptr(), id(n.maps))
                      if isinstance(n, AnalogState) else n.data_ptr()
                      for n in _nodes((params, opt_state))),
-               tuple(batches.shape[1:]), batches.dtype, dev)
+               tuple((k, tuple(v.shape[1:]), v.dtype)
+                     for k, v in batches.items()), dev)
         prog = multi.program
         if prog is None or multi.sig != sig:
             multi.program = None          # its graph's pool goes first
-            prog = _LMStep(step_fn, batches[0], dev)
-            prog.tokens.copy_(batches[0])
+            prog = _LMStep(step_fn, {k: v[0] for k, v in batches.items()},
+                           dev)
+            prog.fill(batches, 0)
             prog.build((_copies(params), _copies(opt_state)),
                        (params, opt_state))
             multi.program, multi.sig = prog, sig
         prog.base.copy_(torch.tensor(base, dtype=torch.int64))
         prog.ctr.copy_(torch.tensor([0, step0]))
-        losses = torch.empty(batches.shape[0], device=dev)
-        for i in range(batches.shape[0]):
-            prog.tokens.copy_(batches[i])
+        losses = torch.empty(chunk, device=dev)
+        for i in range(chunk):
+            prog.fill(batches, i)
             losses[i].copy_(prog.run())
         return params, opt_state, {"loss": losses.cpu()}
 

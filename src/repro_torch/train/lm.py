@@ -27,10 +27,13 @@ AUX_LOSS_WEIGHT = 0.01
 
 def loss_fn(params, batch: Dict[str, Tensor], cfg: ModelConfig,
             key=None) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Next-token cross entropy (+ aux).  ``batch['tokens']`` (B, S)."""
+    """Next-token cross entropy (+ aux).  ``batch['tokens']`` (B, S); an
+    encoder-decoder's ``batch['enc_embeds']`` (B, S_src, d) feed its
+    encoder."""
     akey = key if cfg.uses_analog else None
     tokens = batch["tokens"]
     logits, aux = transformer.forward(params, tokens[:, :-1], cfg,
+                                      enc_embeds=batch.get("enc_embeds"),
                                       akey=akey)
     targets = tokens[:, 1:].to(torch.int64)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
@@ -74,8 +77,9 @@ def make_train_step(cfg: ModelConfig, opt: Optional[Optimizer] = None):
 
 def make_scan_train_step(cfg: ModelConfig, opt: Optional[Optimizer] = None):
     """``(multi_step, opt)``: ``multi_step(params, opt_state, batches,
-    step0)`` runs one chunk of steps, ``batches`` (chunk, B, S) tokens and
-    step ``step0 + i`` under ``fold_in(base, step0 + i)`` (see
+    base, step0)`` runs one chunk of steps, ``batches`` a batch dict whose
+    leaves lead with the chunk axis, and step
+    ``step0 + i`` under ``fold_in(base, step0 + i)`` (see
     :func:`repro_torch.train.engine.scan_steps`), each one CUDA graph
     replay on a card; metrics come back stacked along the chunk."""
     from repro_torch.train.engine import scan_steps

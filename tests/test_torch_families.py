@@ -302,16 +302,18 @@ def test_jax_weights_are_jax_init(arch):
 
 def test_training_refuses_ssm_and_hybrid():
     """The record of a lifted refusal: the driver once refused to train the
-    ssm and hybrid families, and the test keeps its name since they train
-    now (``test_torch_ssm_train.py``, ``test_torch_hybrid_train.py``).
-    ``lm_config`` returns their configs; the encoder-decoder and MoE archs
-    are still refused with the ROADMAP Queue 1 item 6 message;
-    stablelm_3b, dense, trains."""
-    for arch, family in (("mamba2_130m", "ssm"), ("hymba_1_5b", "hybrid")):
+    ssm and hybrid families, and later the encoder-decoder; the test keeps
+    its name since they train now (``test_torch_ssm_train.py``,
+    ``test_torch_hybrid_train.py``, ``test_torch_encdec_train.py``).
+    ``lm_config`` returns their configs; the MoE and VLM archs are still
+    refused with the ROADMAP Queue 1 item 6 message; stablelm_3b, dense,
+    trains."""
+    for arch, family in (("mamba2_130m", "ssm"), ("hymba_1_5b", "hybrid"),
+                         ("seamless_m4t_medium", "audio")):
         assert ttrain.lm_config(arch, smoke=True).family == family
         assert ttrain.lm_config(arch, smoke=True,
                                 analog_policy="lm_managed").uses_analog
-    for arch in ("seamless_m4t_medium", "mixtral_8x7b"):
+    for arch in ("mixtral_8x7b", "pixtral_12b"):
         with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
             ttrain.lm_config(arch, smoke=True)
         with pytest.raises(NotImplementedError, match="Queue 1, item 6"):

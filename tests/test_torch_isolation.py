@@ -106,3 +106,15 @@ def test_walks_the_encoder_decoder_and_the_family_trainer():
             ("launch", "serve.py"), ("launch", "train.py"),
             ("recurrent", "temporal.py"), ("train", "engine.py"),
             ("analog", "convert.py")} <= walked
+
+
+def test_walks_the_qwen15_config_and_the_int8_cache():
+    """The qwen1.5 config, the modules of the QKV bias and the int8 KV
+    cache and those of the encoder-decoder's training are walked."""
+    walked = {(p.parent.name, p.name) for p in FILES}
+    assert {("configs", "qwen1_5_110b.py"), ("configs", "registry.py"),
+            ("configs", "base.py"), ("models", "attention.py"),
+            ("models", "transformer.py"), ("serve", "engine.py"),
+            ("serve", "scheduler.py"), ("train", "lm.py"),
+            ("train", "engine.py"), ("launch", "train.py"),
+            ("checkpoint", "store.py")} <= walked
